@@ -1,0 +1,221 @@
+"""RoadTrafficEnv — the vectorized road-traffic MARL environment on tensors.
+
+`step(state, actions)` -> (state', obs, reward, done, info) over
+struct-of-tensors state `[B, N, ...]`, with auto-reset folded in:
+
+1. dynamics (`command_step`) from (speed, steering) targets
+2. `update_geometry`: vertices, distances, collisions
+3. rewards (use the previous step's recorded pose and short-term window)
+4. state-buffer push, short-term path refresh
+5. done logic, masked auto-reset of the done envs
+6. observation of the post-reset state
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from sigmarl_tpu_torch.config import Parameters
+from sigmarl_tpu_torch.core.dynamics import BicycleParams, command_step
+from sigmarl_tpu_torch.device import resolve_device
+from sigmarl_tpu_torch.env.map_tables import MapTables, build_map_tables
+from sigmarl_tpu_torch.env.observations import observe_with_history
+from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, initial_state
+from sigmarl_tpu_torch.env.rewards import compute_rewards
+from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state
+from sigmarl_tpu_torch.env.updates import (
+    latest_state_record,
+    push_state_buffer,
+    update_geometry,
+    update_short_term_paths,
+)
+from sigmarl_tpu_torch.maps.manager import load_map
+
+Tensor = torch.Tensor
+
+
+class RoadTrafficEnv:
+    """Environment facade: the static config and the map tables on one
+    device; `reset` and `step` are functions of the state."""
+
+    def __init__(self, cfg: EnvConfig, tables: MapTables, device: torch.device):
+        self.cfg = cfg
+        self.tables = tables
+        self.device = device
+        self.bicycle = BicycleParams()
+        S = cfg.n_points_short_term
+        w = np.linspace(1.0, 0.2, S, dtype=np.float32)
+        self.weighting_ref = torch.as_tensor(w / w.sum(), device=device)
+
+    @property
+    def obs_dim(self) -> int:
+        return self.cfg.obs_dim
+
+    @property
+    def n_agents(self) -> int:
+        return self.cfg.n_agents
+
+    @property
+    def batch_dim(self) -> int:
+        return self.cfg.batch_dim
+
+    @property
+    def action_limits(self) -> Tensor:
+        """Per-dimension action bounds [2]: (max_speed, max_steering)."""
+        return torch.tensor([self.cfg.max_speed, self.cfg.max_steering], device=self.device)
+
+    def reset(
+        self, generator: torch.Generator | None = None, draws: ResetDraws | None = None
+    ) -> Tuple[WorldState, Tensor]:
+        """Fresh episode state and initial observation. Random numbers come
+        from `draws` or else from `generator`."""
+        if draws is None:
+            draws = ResetDraws.sample(self.cfg, generator, self.device)
+        state = initial_state(self.cfg, self.tables, draws, self.device)
+        obs, state = observe_with_history(self.cfg, self.tables, state)
+        return state, obs
+
+    def step(
+        self,
+        state: WorldState,
+        actions: Tensor,
+        generator: torch.Generator | None = None,
+        reset_draws: ResetDraws | None = None,
+    ) -> Tuple[WorldState, Tensor, Tensor, Tensor, Dict[str, Tensor]]:
+        """Advance one control period. actions [B, N, 2] (speed target,
+        steering target). The reset's random numbers come from
+        `reset_draws` or else from `generator`, and are drawn only when an
+        env resets. Returns (state', obs [B,N,obs_dim], reward [B,N],
+        done [B], info)."""
+        cfg, tables = self.cfg, self.tables
+        prev_pos = latest_state_record(state)[..., 0:2]
+        prev_short_term = state.short_term
+
+        # 1. dynamics
+        pos, rot, speed, steering, sideslip, vel = command_step(
+            self.bicycle, state.pos, state.rot, state.speed, state.steering, actions, cfg.dt
+        )
+        state = replace_state(
+            state,
+            pos=pos, rot=rot, speed=speed, steering=steering, sideslip=sideslip, vel=vel,
+            step=state.step + 1,
+            nominal_action=actions if not cfg.is_using_cbf else state.nominal_action,
+            applied_action=actions,
+        )
+        # 2. geometry / collisions
+        state = update_geometry(cfg, tables, state)
+        # 3. rewards
+        reward, rew_info = compute_rewards(
+            cfg, state, prev_pos, prev_short_term, self.weighting_ref
+        )
+        # 4. record + refresh windows
+        state = push_state_buffer(state)
+        state = update_short_term_paths(cfg, tables, state)
+        # 5. done + resets
+        done, reset_mask = self._done_and_reset_mask(state)
+        info = dict(rew_info)
+        info.update(
+            pos=state.pos,
+            rot=state.rot,
+            vel=state.vel,
+            distance_ref=state.d_ref,
+            distance_left_b=state.d_left.min(-1).values,
+            distance_right_b=state.d_right.min(-1).values,
+            is_collision_with_agents=state.coll_agents.any(-1),
+            is_collision_with_lanelets=state.coll_lanelets,
+            is_reach_goal=state.coll_exit,
+            path_id=state.path_id,
+            nominal_action=state.nominal_action,
+            applied_action=state.applied_action,
+            terminal_step=state.step,
+        )
+        # The host reads whether any env resets (one device sync per step)
+        # and runs the masked full-width reset only then.
+        if bool(reset_mask.any()):
+            if reset_draws is None:
+                reset_draws = ResetDraws.sample(cfg, generator, self.device)
+            state = apply_reset(cfg, tables, state, reset_mask, reset_draws)
+        # 6. observation of the (possibly reset) state
+        obs, state = observe_with_history(cfg, tables, state)
+        return state, obs, reward, done, info
+
+    def reset_predefined(self, *args, **kwargs):
+        raise NotImplementedError("reset_predefined is not ported to the PyTorch environment")
+
+    def reset_from_poses(self, *args, **kwargs):
+        raise NotImplementedError("reset_from_poses is not ported to the PyTorch environment")
+
+    def _done_and_reset_mask(self, state: WorldState) -> Tuple[Tensor, Tensor]:
+        """Per-env done flag and the agent reset mask."""
+        cfg = self.cfg
+        B, N = cfg.batch_dim, cfg.n_agents
+        if cfg.reset_agent_fixed_duration > 0:
+            t = state.step.to(torch.float32) * cfg.dt
+            fixed = (torch.remainder(t, float(cfg.reset_agent_fixed_duration)) == 0) & (t != 0)
+        else:
+            fixed = torch.zeros((B,), dtype=torch.bool, device=state.step.device)
+        coll_ag = state.coll_agents.reshape(B, -1).any(-1)
+        coll_ll = state.coll_lanelets.any(-1)
+        max_steps = state.step == (cfg.max_steps - 1)
+        done = max_steps | coll_ag | coll_ll | fixed
+        if cfg.scenario_type != "cpm_entire":
+            # Recycle agents that crossed their entry or exit segment (non-loop
+            # paths) without ending the episode.
+            recycle = state.coll_entry | state.coll_exit
+            reset_mask = (recycle & ~done[:, None]) | done[:, None]
+        else:
+            reset_mask = done[:, None].expand(B, N)
+        return done, reset_mask
+
+
+def _check_ported(p: Parameters) -> None:
+    unported = {
+        "the challenging initial-state buffer": p.is_challenging_initial_state_buffer,
+        "testing-mode resets": p.is_testing_mode,
+        "reset_predefined (predefined_ref_path_idx / init_state)": (
+            p.predefined_ref_path_idx is not None or p.init_state is not None
+        ),
+        "observation history > 1": max(p.n_stored_steps, p.n_observed_steps) > 1,
+        "the MTV distance": p.is_use_mtv_distance,
+        "observation noise": p.is_obs_noise,
+        "opponent modeling": p.is_using_opponent_modeling,
+        "prioritized MARL": p.is_using_prioritized_marl,
+        "experiment_type 'lab' (reset_from_poses)": p.experiment_type != "simulation",
+        f"the {p.rew_method!r} reward method": not any(
+            p.rew_method in (m, m + "_sparse") for m in ("distance", "ttc")
+        ),
+    }
+    for what, on in unported.items():
+        if on:
+            raise NotImplementedError(f"{what} is not ported to the PyTorch environment")
+
+
+def make_env(parameters: Parameters, device: str | torch.device | None = None) -> RoadTrafficEnv:
+    """Build an environment from run `Parameters` (map parse + table build)
+    on `device`, by default `parameters.device` ("cuda")."""
+    _check_ported(parameters)
+    dev = resolve_device(device if device is not None else parameters.device)
+    cfg = EnvConfig.from_parameters(parameters)
+    map_data = load_map(parameters.scenario_type)
+    if parameters.scenario_type == "cpm_mixed":
+        table_paths = (
+            map_data.reference_paths_intersection
+            + map_data.reference_paths_merge_in
+            + map_data.reference_paths_merge_out
+        )
+    else:
+        table_paths = map_data.reference_paths
+    cfg = dataclasses.replace(
+        cfg,
+        has_lanelet_neighbors=len(map_data.neighboring_lanelets_idx) > 0,
+        all_paths_loop=all(p.is_loop for p in table_paths),
+    )
+    tables = build_map_tables(
+        map_data, parameters.scenario_type, cfg.n_points_short_term,
+        cfg.sample_interval_ref_path, device=dev,
+    )
+    return RoadTrafficEnv(cfg, tables, dev)

@@ -1,0 +1,115 @@
+"""Pseudo-distance field to lane boundaries (batched tensors).
+
+A smooth point-to-polyline distance: each segment's projection is
+interpolated between the pseudo tangent vectors at its two end points, so
+the field is continuous across segment joints; the distance is the min
+over segments whose projection is valid. All math in float32.
+
+The per-segment frame and tangent slopes depend only on the map and are
+precomputed once (`segment_table`); the hot-path query sweep against those
+rows runs in the CUDA kernel of `ops/boundary.py`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+_BIG = 1000.0
+
+# Segment-chunk granularity for top-k chunk pruning: segment tables are
+# padded to a PD_CHUNK multiple and per-chunk bounding circles precomputed
+# (`env/map_tables.build_map_tables`).
+PD_CHUNK = 16
+
+# Projection-validity tolerance: the valid regions lambda in [0, 1) of
+# neighbouring segments meet exactly at their joint, so strict bounds are
+# knife-edged under float reassociation; widening them by _LAM_EPS turns
+# the gap into a small overlap (min over two nearly equal candidates).
+_LAM_EPS = 1e-3
+
+
+def segment_table(boundary: Tensor, tangents: Tensor, n_valid: Tensor | None = None) -> Tensor:
+    """Per-segment rows (pbx, pby, cos_t, sin_t, len, m_b, m_t, valid):
+    boundary, tangents [..., P, 2]; n_valid [...]. Returns [..., P-1, 8]."""
+    p_b = boundary[..., :-1, :]
+    p_t = boundary[..., 1:, :]
+    t_b = tangents[..., :-1, :]
+    t_t = tangents[..., 1:, :]
+    seg = p_t - p_b
+    seg_len = torch.sqrt((seg * seg).sum(-1))
+    theta = torch.atan2(seg[..., 1], seg[..., 0])
+    cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+
+    def to_local(vx, vy):
+        return cos_t * vx + sin_t * vy, -sin_t * vx + cos_t * vy
+
+    tbx, tby = to_local(t_b[..., 0], t_b[..., 1])
+    ttx, tty = to_local(t_t[..., 0], t_t[..., 1])
+    one = torch.ones_like(tbx)
+    m_b = torch.where(tbx != 0, tby / torch.where(tbx != 0, tbx, one), 1e-8)
+    m_t = torch.where(ttx != 0, tty / torch.where(ttx != 0, ttx, one), 1e-8)
+
+    valid = seg_len > 1e-9
+    if n_valid is not None:
+        seg_idx = torch.arange(seg.shape[-2], device=seg.device)
+        valid = valid & (seg_idx < (n_valid[..., None] - 1))
+    return torch.stack(
+        [p_b[..., 0], p_b[..., 1], cos_t, sin_t, seg_len, m_b, m_t, valid.to(boundary.dtype)],
+        dim=-1,
+    )
+
+
+def pseudo_distance_seg(points: Tensor, seg: Tensor) -> Tensor:
+    """Pseudo distance against segment-table rows.
+    points [..., Q, 2]; seg [..., S, 8]. Returns [..., Q]."""
+    pbx = seg[..., None, :, 0]
+    pby = seg[..., None, :, 1]
+    cos_t = seg[..., None, :, 2]
+    sin_t = seg[..., None, :, 3]
+    ln = seg[..., None, :, 4]
+    m_b = seg[..., None, :, 5]
+    m_t = seg[..., None, :, 6]
+    valid = seg[..., None, :, 7] > 0.5
+    rx = points[..., :, None, 0] - pbx
+    ry = points[..., :, None, 1] - pby
+    x = cos_t * rx + sin_t * ry
+    y = -sin_t * rx + cos_t * ry
+    denom = ln - y * (m_t - m_b)
+    lam = (x + y * m_b) / denom
+    nx = x - lam * ln
+    d2 = nx * nx + y * y
+    ok = valid & (lam >= -_LAM_EPS) & (lam < 1 + _LAM_EPS)
+    # Min over squared distances, one sqrt per query; sqrt(_BIG**2) is _BIG.
+    return torch.sqrt(torch.where(ok, d2, _BIG * _BIG).min(dim=-1).values)
+
+
+def topk_chunks(
+    chunk_cc: Tensor,  # [K, NC, 2] chunk bound centers (MapTables)
+    chunk_cr: Tensor,  # [K, NC] chunk bound radii
+    path_id: Tensor,  # [...] int32
+    p_ref: Tensor,  # [..., 2] per-row reference point
+    reach: float,  # max |query - p_ref| over the row's queries
+    k: int,
+) -> Tensor:
+    """Indices [..., k] int32 of the k chunks with the smallest lower bound
+    |p_ref - cc| - cr - reach on the distance of any query within `reach`
+    of `p_ref` to any segment of the chunk. A min over those chunks' rows
+    is exact whenever the true minimum is below every unselected bound."""
+    pid = path_id.long()
+    ccp = chunk_cc[pid]  # [..., NC, 2]
+    crp = chunk_cr[pid]
+    diff = p_ref[..., None, :] - ccp
+    lbound = torch.sqrt((diff * diff).sum(-1)) - crp - reach
+    return torch.topk(-lbound, k, dim=-1).indices.to(torch.int32)
+
+
+def chunk_rows(seg_table: Tensor, path_id: Tensor, chunks: Tensor) -> Tensor:
+    """Gather the segment rows of the selected chunks: seg_table [K, S, 8];
+    path_id [...]; chunks [..., k]. Returns [..., k*PD_CHUNK, 8]."""
+    K, S = seg_table.shape[0], seg_table.shape[1]
+    NC = S // PD_CHUNK
+    flat = path_id.long()[..., None] * NC + chunks.long()
+    rows = seg_table.reshape(K * NC, PD_CHUNK, 8)[flat]
+    return rows.reshape(*flat.shape[:-1], chunks.shape[-1] * PD_CHUNK, 8)

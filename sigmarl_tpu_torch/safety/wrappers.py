@@ -1,0 +1,48 @@
+"""CBF-constrained environment step: the filter runs between the policy
+and the env step."""
+
+from __future__ import annotations
+
+import torch
+
+from sigmarl_tpu_torch.env.env import RoadTrafficEnv
+from sigmarl_tpu_torch.env.reset import ResetDraws
+from sigmarl_tpu_torch.env.structs import WorldState, replace_state
+from sigmarl_tpu_torch.safety.cbf_qp import CBFSafetyFilter
+
+
+def cbf_filtered_step(
+    env: RoadTrafficEnv,
+    cbf: CBFSafetyFilter,
+    state: WorldState,
+    rl_actions: torch.Tensor,
+    generator: torch.Generator | None = None,
+    apply_cbf_action: bool = True,
+    reset_draws: ResetDraws | None = None,
+):
+    """One env step through the CBF-QP safety filter, warm-started from the
+    previous step's solution.
+
+    With `apply_cbf_action` the filtered action is applied and the RL
+    action recorded as nominal; otherwise the nominal action is applied and
+    the would-be safe action recorded. Returns (state', obs, reward, done,
+    info) with the filter's diagnostics merged into info."""
+    finfo = cbf.filter_actions(state, rl_actions, u_init=state.cbf_u_prev)
+    if apply_cbf_action:
+        applied, nominal = finfo.safe_actions, finfo.nominal_actions
+    else:
+        applied, nominal = finfo.nominal_actions, finfo.safe_actions
+    state = replace_state(
+        state, nominal_action=nominal, applied_action=applied, cbf_u_prev=finfo.u_star
+    )
+    state, obs, reward, done, info = env.step(
+        state, applied, generator=generator, reset_draws=reset_draws
+    )
+    info = dict(info)
+    info.update(
+        cbf_solved=finfo.solved,
+        cbf_infeasible=finfo.infeasible,
+        cbf_max_violation=finfo.max_violation,
+        cbf_action_deviation=torch.abs(finfo.safe_actions - finfo.nominal_actions),
+    )
+    return state, obs, reward, done, info

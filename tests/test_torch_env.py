@@ -1,0 +1,182 @@
+"""The port's environment (reset and step) against the JAX package from
+identical states with the JAX package's random draws, plus the port's
+package rules: it imports nothing of JAX, and its entry points refuse to
+run on the CPU unless asked to.
+
+Tolerances: float32 state fields that come from the same formulas agree to
+atol 2e-5 (reassociated sums, trigonometric library differences of an ulp
+or two); observations to 1e-4 (normalised features built from those
+fields); integer fields and flags exactly."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import sigmarl_tpu_torch.config as tcfg
+from sigmarl_tpu_torch.env.structs import WorldState
+from tests.torch_parity import env_reset_draws, envs, params, step_reset_draws, to_numpy, to_torch_state
+
+torch.set_num_threads(1)
+B, N = 4, 15
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def assert_state_close(ts: WorldState, js, atol=2e-5, skip=()):
+    for f in dataclasses.fields(WorldState):
+        if f.name in skip:
+            continue
+        a, b = to_numpy(getattr(ts, f.name)), np.asarray(getattr(js, f.name))
+        assert a.shape == b.shape, f.name
+        if np.issubdtype(b.dtype, np.floating):
+            np.testing.assert_allclose(a, b, atol=atol, rtol=1e-5, err_msg=f.name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return envs(**params("cpm_entire", N, B))
+
+
+def test_reset_matches_jax(pair):
+    jenv, tenv = pair
+    key = jax.random.PRNGKey(3)
+    js, jobs = jax.jit(jenv.reset)(key)
+    ts, tobs = tenv.reset(draws=env_reset_draws(key, jenv.cfg))
+    assert_state_close(ts, js)
+    np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "rew_method, with_reset", [("distance", False), ("distance", True), ("ttc", False)]
+)
+def test_step_matches_jax(pair, rew_method, with_reset):
+    """From a live state (reset, then 3 random steps in JAX), one step in
+    both with the same actions and reset draws: state, obs, reward, done.
+    Envs that collide end and reset; `with_reset` also lowers max_steps so
+    that the oldest envs surely end at this step and the masked reset runs
+    on the JAX draws. "ttc" swaps the distance penalty for the
+    time-to-collision one."""
+    jenv, tenv = pair
+    key = jax.random.PRNGKey(7)
+    state, _ = jax.jit(jenv.reset)(key)
+    jstep = jax.jit(jenv.step)
+    for t in range(3):
+        k_act, k_step = jax.random.split(jax.random.fold_in(key, t))
+        act = jax.random.uniform(k_act, (B, N, 2), minval=-0.2, maxval=0.8)
+        state, *_ = jstep(state, act, k_step)
+    if with_reset or rew_method != "distance":
+        max_steps = int(np.asarray(state.step).max()) + 2 if with_reset else 1_000_000
+        jenv, tenv = envs(**params("cpm_entire", N, B, max_steps=max_steps, rew_method=rew_method))
+        jstep = jax.jit(jenv.step)
+    act = jax.random.uniform(jax.random.PRNGKey(11), (B, N, 2), minval=-0.2, maxval=0.8)
+    k_step = jax.random.PRNGKey(12)
+    ts0 = to_torch_state(state)
+    js, jobs, jrew, jdone, _ = jstep(state, act, k_step)
+    ts, tobs, trew, tdone, _ = tenv.step(
+        ts0, torch.from_numpy(np.asarray(act)), reset_draws=step_reset_draws(k_step, jenv.cfg)
+    )
+    assert bool(np.asarray(jdone).any()) or not with_reset
+    np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
+    np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=1e-4, rtol=1e-5)
+    assert_state_close(ts, js)
+
+
+def test_package_imports_no_jax():
+    """Importing every module of the port leaves no JAX and no module of
+    the JAX package in sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sigmarl_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'flax'))\n"
+        "             or n == 'sigmarl_tpu' or n.startswith('sigmarl_tpu.'))\n"
+        "print(len([n for n in sys.modules if n.startswith('sigmarl_tpu_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) > 20
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, PolicyNet, make_env
+    from sigmarl_tpu_torch.rl.networks import policy_from_jax_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = tcfg.Parameters(**params("cpm_entire", N, B))
+    assert p.device == "cuda"
+    shipped = os.path.join(REPO, "sigmarl_tpu_torch", "config.json")
+    assert tcfg.Parameters.from_json(shipped).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_env(p)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PolicyNet(32)
+    tenv = make_env(p, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CBFSafetyFilter(CBFConfig(n_agents=N), tenv.cfg, tenv.tables)
+    params_np = {"params": {"MLP_0": {
+        f"Dense_{i}": {"kernel": np.zeros((a, b), np.float32), "bias": np.zeros(b, np.float32)}
+        for i, (a, b) in enumerate([(32, 8), (8, 4)])}}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        policy_from_jax_params(params_np)
+    assert policy_from_jax_params(params_np, device="cpu").layers[0].weight.shape == (8, 32)
+
+
+@pytest.mark.parametrize(
+    "flag",
+    [
+        dict(is_challenging_initial_state_buffer=True),
+        dict(is_testing_mode=True),
+        dict(n_observed_steps=2),
+        dict(is_use_mtv_distance=True),
+        dict(is_obs_noise=True),
+        dict(is_using_opponent_modeling=True),
+        dict(is_using_prioritized_marl=True),
+        dict(rew_method="cbf"),
+    ],
+)
+def test_unported_env_options_raise(flag):
+    from sigmarl_tpu_torch import make_env
+
+    p = tcfg.Parameters(**{**params("cpm_entire", N, B), **flag})
+    with pytest.raises(NotImplementedError):
+        make_env(p, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "cbf_kw, filter_kw",
+    [
+        ({}, dict(decentralized=True)),
+        ({}, dict(max_group_size=4)),
+        (dict(nom_controller_type="clf"), {}),
+        (dict(fp16_parity=True), {}),
+        (dict(use_windowed_pseudo_distance=True), {}),
+        (dict(is_obs_noise=True), {}),
+    ],
+)
+def test_unported_filter_options_raise(pair, cbf_kw, filter_kw):
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter
+
+    _, tenv = pair
+    with pytest.raises(NotImplementedError):
+        CBFSafetyFilter(CBFConfig(n_agents=N, **cbf_kw), tenv.cfg, tenv.tables,
+                        device="cpu", **filter_kw)
+
+
+def test_unported_resets_raise(pair):
+    _, tenv = pair
+    with pytest.raises(NotImplementedError):
+        tenv.reset_predefined(None, None, None)
+    with pytest.raises(NotImplementedError):
+        tenv.reset_from_poses(None, None, None)

@@ -1,0 +1,62 @@
+"""Port map tables vs the JAX package's `build_map_tables`."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from sigmarl_tpu.env.map_tables import build_map_tables as jax_build
+from sigmarl_tpu.maps.manager import load_map as jax_load_map
+from sigmarl_tpu_torch.core import geometry as G
+from sigmarl_tpu_torch.env.map_tables import MapTables, build_map_tables
+from sigmarl_tpu_torch.maps.manager import load_map
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("scenario", ["cpm_entire", "cpm_mixed"])
+def test_map_tables_match_jax(scenario):
+    """Every table equals the JAX one: floats to atol 2e-6, integer and
+    bool tables exactly, except the spawn boundary indices, whose argmin
+    may pick the other of two segments at equal distance (float32 ties)."""
+    ours = build_map_tables(load_map(scenario), scenario, 3, 2)
+    ref = jax_build(jax_load_map(scenario), scenario, 3, 2)
+    for f in dataclasses.fields(MapTables):
+        a = getattr(ours, f.name).numpy()
+        b = np.asarray(getattr(ref, f.name))
+        assert a.shape == b.shape and a.dtype == b.dtype, f.name
+        if f.name in ("spawn_idx_left", "spawn_idx_right"):
+            continue
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            np.testing.assert_allclose(a, b, atol=2e-6, rtol=0, err_msg=f.name)
+
+    # Where the spawn boundary index differs, both indices' segments are
+    # at the same distance from the spawn point (to 1e-6).
+    for side in ("left", "right"):
+        a = getattr(ours, f"spawn_idx_{side}")
+        b = torch.from_numpy(np.array(getattr(ref, f"spawn_idx_{side}")))
+        bnd = getattr(ours, f"{side}_boundary")  # [K, PB, 2]
+        diff = (a != b).nonzero()
+        assert diff.shape[0] <= 0.01 * a.numel()
+        for k, p in diff.tolist():
+            pt = ours.long_term[k, p]
+            d = [
+                G.min_perpendicular_distance(pt, bnd[k, int(i) - 1:int(i) + 1])
+                for i in (a[k, p], b[k, p])
+            ]
+            assert abs(float(d[0] - d[1])) < 1e-6
+
+
+def test_map_tables_move_to_device_field_by_field():
+    tables = build_map_tables(load_map("cpm_mixed"), "cpm_mixed", 3, 2)
+    moved = tables.to("cpu")
+    for f in dataclasses.fields(MapTables):
+        assert torch.equal(getattr(moved, f.name), getattr(tables, f.name))
+
+
+def test_unported_scenario_raises():
+    with pytest.raises(NotImplementedError):
+        load_map("intersection_1")

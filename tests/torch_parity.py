@@ -1,0 +1,76 @@
+"""Shared helpers of the tests that hold the PyTorch port against the JAX
+package: matching environments, state conversion and the JAX package's
+random draws for the port's reset."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+import sigmarl_tpu.config as jcfg
+import sigmarl_tpu_torch.config as tcfg
+from sigmarl_tpu.env import make_env as jax_make_env
+from sigmarl_tpu_torch.env.env import make_env as torch_make_env
+from sigmarl_tpu_torch.env.reset import ResetDraws
+from sigmarl_tpu_torch.env.structs import WorldState
+
+
+def params(scenario_type: str, n_agents: int, batch: int, **kw) -> dict:
+    """Parameters of the filtered rollout (the port's supported options)."""
+    base = dict(
+        scenario_type=scenario_type, n_agents=n_agents, num_vmas_envs=batch, dt=0.1,
+        max_steps=1_000_000, is_use_mtv_distance=False, is_obs_noise=False,
+        is_using_cbf_testing=True, is_using_centralized_cbf=True,
+    )
+    base.update(kw)
+    return base
+
+
+def envs(**kw):
+    """(JAX env, port env on the CPU) built from the same parameters."""
+    jenv = jax_make_env(jcfg.Parameters(**kw))
+    tenv = torch_make_env(tcfg.Parameters(**kw), device="cpu")
+    return jenv, tenv
+
+
+def to_torch_state(state) -> WorldState:
+    return WorldState(
+        **{f.name: torch.from_numpy(np.array(getattr(state, f.name)))
+           for f in dataclasses.fields(WorldState)}
+    )
+
+
+def to_numpy(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def reset_draws(key, cfg) -> ResetDraws:
+    """The random numbers the JAX package's `apply_reset(..., key)` draws."""
+    B, N, T = cfg.batch_dim, cfg.n_agents, cfg.max_spawn_tries
+    k_scen, k_spawn, k_speed = jax.random.split(key, 3)
+    k_path, k_point = jax.random.split(k_spawn)
+    gumbel = None
+    if cfg.scenario_type == "cpm_mixed":
+        gumbel = torch.from_numpy(np.asarray(jax.random.gumbel(k_scen, (B, 3))))
+    t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    return ResetDraws(
+        scenario_gumbel=gumbel,
+        path_u=t(jax.random.uniform(k_path, (B, N, T))),
+        point_u=t(jax.random.uniform(k_point, (B, N, T))),
+        speed_u=t(jax.random.uniform(k_speed, (B, N))),
+    )
+
+
+def step_reset_draws(key, cfg) -> ResetDraws:
+    """Draws of the reset inside the JAX package's `env.step(..., key)`."""
+    k_reset, _ = jax.random.split(key)
+    return reset_draws(k_reset, cfg)
+
+
+def env_reset_draws(key, cfg) -> ResetDraws:
+    """Draws of the JAX package's `env.reset(key)`."""
+    k_state, _ = jax.random.split(key)
+    return reset_draws(k_state, cfg)
