@@ -26,8 +26,17 @@ Phases, in order; any failure exits non-zero before the result line:
 6. a small-input check at B=8: the card's constraint assembly, solve and
    environment step against the CPU path (the kernels' plain versions)
    from the same state with the same draws;
-7. kernel times (CUDA events, warmed up) beside each kernel's bound and
-   its plain version's time, as one JSON line; then the result line.
+7. kernel times beside each kernel's bound and its plain version's time,
+   and K1's shared memory, blocks per SM and waves, as one JSON line; then
+   the result line. `ms` (with `ms_min`, `ms_max`) is the median, least
+   and largest of 7 CUDA-event windows queued behind a spin on the card,
+   warmed up: the card's time alone. `back_to_back_ms` is the median of 7
+   windows of calls as the host issues them, which for a kernel shorter
+   than its wrapper's host cost (K2) times the host's launch rate.
+   K2's bound counts the work this input needs: every selected segment
+   tested once per row, and the exact evaluation only on the segments that
+   count for some query of the row (the bound for every segment evaluated
+   for every query is printed beside it).
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -66,20 +75,34 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean milliseconds per call of `fn` on the card (CUDA events)."""
+def cuda_ms(fn, reps: int, warm: int = 1, queued: bool = False) -> float:
+    """Mean milliseconds per call of `fn` over `reps` back-to-back calls on
+    the card (CUDA events). A call that runs shorter on the card than it
+    costs the host to launch (a wrapper call costs tens of microseconds)
+    is then timed at the host's launch rate. With `queued`, a spin of ~50
+    ms on the card goes first, so the host queues the calls while the card
+    is busy and the window times the card's work alone."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_windows(fn, reps: int, windows: int = 7, queued: bool = False) -> dict:
+    """Median, least and largest of `windows` CUDA-event windows of `reps`
+    calls each (milliseconds per call)."""
+    times = sorted(cuda_ms(fn, reps, queued=queued) for _ in range(windows))
+    return dict(ms=times[len(times) // 2], ms_min=times[0], ms_max=times[-1])
 
 
 def rel_gap(a, b):
@@ -111,7 +134,9 @@ def qp_flops(N: int, Ks: int, Kp: int, P: int, n_iters: int, soft_iters: int) ->
     return 2 * f_value + soft_iters * step + (2 * f_value if soft_iters else 0) + n_iters * step + f_value
 
 
-_SEG_OPS = 25  # float operations per (query, segment) in csrc/boundary_stencil.cu
+# Float operations in csrc/boundary_stencil.cu: the exact evaluation of one
+# (query, segment) pair, and the disk test of one (row, side, segment).
+_SEG_OPS, _TEST_OPS = 25, 43
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -330,8 +355,8 @@ def kernel_report(qp_args, qp_static, pd_args, launches, errs) -> list:
     from sigmarl_tpu_torch.ops.boundary import (
         pseudo_distance_stencil, pseudo_distance_stencil_reference,
     )
-    from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference
-    from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK
+    from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference, solve_occupancy
+    from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, chunk_rows, counting_segments
 
     singles, pairs, u0 = qp_args[:3]
     B, d = u0.shape
@@ -347,27 +372,45 @@ def kernel_report(qp_args, qp_static, pd_args, launches, errs) -> list:
     R, Q = q.shape[:2]
     k2 = lambda: pseudo_distance_stencil(*pd_args)  # noqa: E731
     k2_plain = lambda: pseudo_distance_stencil_reference(*pd_args)  # noqa: E731
+    # What this input needs: every selected segment tested once per row and
+    # side, and the exact evaluation for all queries of a row only on the
+    # segments that count for at least one of them.
     n_seg = cl.shape[1] * PD_CHUNK
-    k2_flops = 2 * R * Q * (n_seg * _SEG_OPS + 1)
+    counting = sum(int(counting_segments(q, chunk_rows(seg, pid, ch)).sum())
+                   for seg, ch in ((lseg, cl), (rseg, cr)))
+    k2_flops = 2 * R * n_seg * _TEST_OPS + counting * Q * _SEG_OPS + 2 * R * Q
     k2_bytes = sum(t.numel() * t.element_size() for t in (q, pid, lseg, rseg, cl, cr)) + 2 * R * Q * 4
     k2_bound, k2_by = bound_ms(k2_flops, k2_bytes)
+    k2_bound_all, k2_by_all = bound_ms(2 * R * Q * (n_seg * _SEG_OPS + 1), k2_bytes)
 
     rows = [
         dict(name="qp_newton", route="cuda", source="sigmarl_tpu_torch/csrc/qp_newton.cu",
              replaces="sigmarl_tpu/ops/qp_pallas.py:370", launches=launches["qp_newton"],
-             max_abs_err=errs["qp_newton"], ms=cuda_ms(k1, reps=20),
+             max_abs_err=errs["qp_newton"], **cuda_ms_windows(k1, reps=20, queued=True),
+             back_to_back_ms=cuda_ms_windows(k1, reps=20)["ms"],
              plain_ms=cuda_ms(k1_plain, reps=2), bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None),
         dict(name="boundary_stencil", route="cuda",
              source="sigmarl_tpu_torch/csrc/boundary_stencil.cu",
              replaces="sigmarl_tpu/ops/boundary_pallas.py:89",
              launches=launches["boundary_stencil"], max_abs_err=errs["boundary_stencil"],
-             ms=cuda_ms(k2, reps=200), plain_ms=cuda_ms(k2_plain, reps=20), bound_ms=k2_bound,
-             bound_by=k2_by, library_ms=None),
+             **cuda_ms_windows(k2, reps=200, queued=True),
+             back_to_back_ms=cuda_ms_windows(k2, reps=200)["ms"],
+             plain_ms=cuda_ms(k2_plain, reps=20), bound_ms=k2_bound, bound_by=k2_by,
+             library_ms=None),
     ]
     for r in rows:
-        print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-              f"plain {r['plain_ms']:.3f} ms, no single PyTorch call computes it)")
+        print(f"{r['name']}: {r['ms']:.4f} ms queued behind a spin, the card's time alone "
+              f"(median of 7 windows, {r['ms_min']:.4f} to {r['ms_max']:.4f}), "
+              f"{r['back_to_back_ms']:.4f} ms back to back; bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, plain {r['plain_ms']:.3f} ms, no single PyTorch call computes it")
+    print(f"K2 work: {counting} of {2 * R * n_seg} (row, side, segment) triples count for "
+          f"some query ({counting / (2 * R * n_seg):.4f}); bound if every selected segment "
+          f"were evaluated for every query: {k2_bound_all:.4f} ms by {k2_by_all}")
+    occ = solve_occupancy(N, Ks, Kp, P, B)
+    print(f"K1 footprint: {occ['smem_bytes']} B of shared memory per block (one env), "
+          f"{occ['blocks_per_sm']} blocks per SM on {occ['sms']} SMs, "
+          f"{occ['waves']:.2f} waves at B={B}")
     return rows
 
 

@@ -13,9 +13,10 @@ centralized filter at the 3+5 budget), warms up, then:
    (the solve kernel K1 and the safe-action write-back), and the
    environment step;
 2. traces `--steps` plain steps with torch.profiler and prints the kernel
-   launches per step, the device's busy time per step and its share of the
-   wall time, K1's and K2's shares, and the kernels with the most device
-   time.
+   launches per step, the device's busy time per step and its busy and
+   idle shares of the step (the sum of the stage times: the profiler's
+   start-up inflates its own wall time), K1's and K2's shares, and the
+   kernels with the most device time.
 
 Prints one JSON line at the end. Needs a CUDA device.
 """
@@ -104,8 +105,13 @@ def main() -> int:
         return sum(t for k, (t, _) in kernels.items() if tag in k) / args.steps / 1e3
 
     k1_ms, k2_ms = share("qp_newton_kernel"), share("pd_stencil_kernel")
+    # The profiler's own start-up fills the traced wall time, so the busy
+    # share is taken against the synchronised stage times of the first part.
+    step_ms = sum(stage_ms.values())
     print(f"traced {args.steps} steps: {wall_ms:.3f} ms/step wall (profiler on), device busy "
-          f"{busy_ms:.3f} ms/step ({busy_ms / wall_ms:.1%}), {launches:.0f} kernel launches/step")
+          f"{busy_ms:.3f} ms/step, {launches:.0f} kernel launches/step; against the "
+          f"{step_ms:.3f} ms step of the stages the device is busy {busy_ms / step_ms:.1%} "
+          f"and idle {1 - busy_ms / step_ms:.1%}")
     print(f"K1 qp_newton {k1_ms:.4f} ms/step, K2 pd_stencil {k2_ms:.4f} ms/step, "
           f"other kernels {busy_ms - k1_ms - k2_ms:.3f} ms/step")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
@@ -114,7 +120,8 @@ def main() -> int:
     print(smi)
     print(json.dumps(dict(
         device=smi, batch=cs.BATCH, n_agents=cs.N_AGENTS, steps=args.steps,
-        stage_ms=stage_ms, traced_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        stage_ms=stage_ms, step_ms=step_ms, traced_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        idle_share=1 - busy_ms / step_ms,
         launches_per_step=launches, k1_ms=k1_ms, k2_ms=k2_ms,
     )))
     return 0

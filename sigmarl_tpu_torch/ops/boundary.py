@@ -70,6 +70,8 @@ def pseudo_distance_stencil(
         )
     R, Q = q.shape[0], q.shape[1]
     K, S = left_seg.shape[0], left_seg.shape[1]
+    if Q > 128:
+        raise ValueError(f"the kernel takes at most 128 queries per row, got {Q}")
     _check(q, "q", torch.float32, (R, Q, 2))
     _check(path_id, "path_id", torch.int32, (R,))
     _check(left_seg, "left_seg", torch.float32, (K, S, 8))
@@ -81,6 +83,8 @@ def pseudo_distance_stencil(
         if S % PD_CHUNK:
             raise ValueError(f"segment axis {S} is not a multiple of {PD_CHUNK}")
         k = left_chunks.shape[-1]
+        if 2 * k > 32:
+            raise ValueError(f"the kernel takes at most 16 chunks per row and side, got {k}")
         _check(left_chunks, "left_chunks", torch.int32, (R, k))
         _check(right_chunks, "right_chunks", torch.int32, (R, k))
     d_left = torch.empty((R, Q), dtype=torch.float32, device=q.device)

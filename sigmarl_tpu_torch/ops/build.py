@@ -4,11 +4,13 @@ Each source under `csrc/` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), placed in
 `_build/` beside the package. A library is rebuilt when its source is newer.
 `build_all` starts one nvcc per source at once; `library` builds on first
-use and loads.
+use and loads. `build_sources` and `swapped_library` let tools run another
+version of a kernel's source through the same wrappers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -52,35 +54,62 @@ def _stale(name: str) -> bool:
     return not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src)
 
 
+def _compile(jobs: dict) -> dict:
+    """Run one nvcc per {library path: source} at once. Returns {library
+    path: (seconds, ptxas report)}; raises if a build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for out, src in jobs.items():
+        tmp = out + f".{os.getpid()}.tmp"
+        procs[out] = (tmp, src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    report, failed = {}, []
+    for out, (tmp, src, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[out] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
 def build_all(names=None, force: bool = False) -> dict:
     """Compile the named kernel libraries (all by default) in parallel, one
     nvcc process each. Returns {name: (seconds, ptxas report)}; raises if a
     build fails."""
     names = list(SOURCES) if names is None else list(names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    t0 = time.perf_counter()
-    for name in names:
-        if not force and not _stale(name):
-            continue
-        tmp = lib_path(name) + f".{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    report = {name: (0.0, "up to date") for name in names if name not in procs}
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, lib_path(name))
-        report[name] = (time.perf_counter() - t0, log)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return report
+    done = _compile({lib_path(n): os.path.join(CSRC, SOURCES[n])
+                     for n in names if force or _stale(n)})
+    return {n: done.get(lib_path(n), (0.0, "up to date")) for n in names}
+
+
+def build_sources(sources: dict) -> dict:
+    """Compile CUDA sources from anywhere ({tag: path}) with the kernels'
+    flags, in parallel, into `_build/lib<tag>.so`, and load them: {tag:
+    CDLL}. For tools that run other versions of a kernel through the port's
+    wrappers (see `swapped_library`)."""
+    _compile({lib_path(tag): path for tag, path in sources.items()})
+    return {tag: ctypes.CDLL(lib_path(tag)) for tag in sources}
+
+
+@contextlib.contextmanager
+def swapped_library(name: str, lib: ctypes.CDLL):
+    """Within the block, the wrappers that load kernel library `name` get
+    `lib` instead, which must have the same C interface."""
+    global library
+    real = library
+    library = lambda n: lib if n == name else real(n)  # noqa: E731
+    try:
+        yield
+    finally:
+        library = real
 
 
 @functools.cache

@@ -90,6 +90,47 @@ def _block_sum(*parts: Tensor) -> Tensor:
     return _seq_sum(_warp_tree(acc))
 
 
+def agent_pair_slots(owner: np.ndarray, N: int, device=None) -> Tensor:
+    """[N, L] indices of the pairs that agent n owns in one role (`owner`
+    is pair_i or pair_j), in pair order, padded with P (a zero column): the
+    per-agent lists the kernel walks (it builds the same runs in shared
+    memory)."""
+    P = len(owner)
+    lists = [np.flatnonzero(owner == n) for n in range(N)]
+    L = max([len(x) for x in lists] + [1])
+    out = np.full((N, L), P, np.int64)
+    for n, x in enumerate(lists):
+        out[n, : len(x)] = x
+    return torch.as_tensor(out, device=device)
+
+
+def chol_solve(H: Tensor, g: Tensor) -> Tensor:
+    """Solve H x = g for a batch of SPD matrices [B, d, d] as the kernel
+    does: right-looking Cholesky with the pivot clamped at 1e-12, forward
+    substitution L y = g, then backward substitution L^T x = y column by
+    column (x_j = r_j / L_jj, then r_i -= L_ji x_j for i < j), every entry
+    updated in that order."""
+    d = H.shape[-1]
+    A = H.clone()
+    L = torch.zeros_like(H)
+    for j in range(d):
+        piv = 1.0 / torch.sqrt(torch.clamp(A[:, j, j], min=1e-12))
+        col = A[:, j:, j] * piv[:, None]
+        L[:, j:, j] = col
+        if j < d - 1:
+            A[:, j + 1:, j + 1:] -= col[:, 1:, None] * col[:, None, 1:]
+    r = g.clone()
+    y = torch.zeros_like(g)
+    for j in range(d):
+        y[:, j] = r[:, j] / L[:, j, j]
+        r[:, j + 1:] -= L[:, j + 1:, j] * y[:, j:j + 1]
+    x = torch.zeros_like(g)
+    for j in range(d - 1, -1, -1):
+        x[:, j] = y[:, j] / L[:, j, j]
+        y[:, :j] -= L[:, j, :j] * x[:, j:j + 1]
+    return x
+
+
 def newton_solve_reference(
     singles: Tensor,  # [B, 6, N*Ks]: a_x, a_y, b, h, ws, wl
     pairs: Tensor,  # [B, 8, P*Kp]: a_xi, a_yi, a_xj, a_yj, b, h, ws, wl
@@ -122,17 +163,7 @@ def newton_solve_reference(
     row_n = torch.arange(N, device=dev).repeat_interleave(Ks)  # [Ms]
     row_i, row_j = pi.repeat_interleave(Kp), pj.repeat_interleave(Kp)  # [Mp]
 
-    def slots(owner):
-        """[N, L] pair indices per agent in pair order, padded with P (a
-        zero column): the kernel's per-agent loop over the pairs."""
-        lists = [np.flatnonzero(owner == n) for n in range(N)]
-        L = max([len(x) for x in lists] + [1])
-        out = np.full((N, L), P, np.int64)
-        for n, x in enumerate(lists):
-            out[n, : len(x)] = x
-        return torch.as_tensor(out, device=dev)
-
-    slots_i, slots_j = slots(pi_np), slots(pj_np)
+    slots_i, slots_j = agent_pair_slots(pi_np, N, dev), agent_pair_slots(pj_np, N, dev)
 
     def to_agents(per_pair, slot):  # [B, P] -> [B, N], summed in pair order
         padded = torch.cat([per_pair, per_pair.new_zeros((B, 1))], dim=1)
@@ -186,33 +217,6 @@ def newton_solve_reference(
         R = items.shape[-1] // THREADS
         items = items.reshape(B, K, R, THREADS).transpose(1, 2)  # [B, R, K, T]
         return items.reshape(B, R * K, THREADS)
-
-    def chol_solve(H, g):
-        """Right-looking Cholesky with the pivot clamped at 1e-12, then the
-        two substitutions; the backward dot products sum as the kernel's
-        warp does (lane-strided, then the butterfly)."""
-        A = H.clone()
-        L = torch.zeros_like(H)
-        for j in range(d):
-            piv = 1.0 / torch.sqrt(torch.clamp(A[:, j, j], min=1e-12))
-            col = A[:, j:, j] * piv[:, None]
-            L[:, j:, j] = col
-            if j < d - 1:
-                A[:, j + 1:, j + 1:] -= col[:, 1:, None] * col[:, None, 1:]
-        r = g.clone()
-        y = torch.zeros_like(g)
-        for j in range(d):
-            y[:, j] = r[:, j] / L[:, j, j]
-            r[:, j + 1:] -= L[:, j + 1:, j] * y[:, j:j + 1]
-        x = torch.zeros_like(g)
-        for j in range(d - 1, -1, -1):
-            part = torch.zeros_like(y[:, j])
-            if j < d - 1:
-                terms = _pad_to(L[:, j + 1:, j] * x[:, j + 1:], _WARP)
-                lanes = _seq_sum(terms.reshape(B, -1, _WARP).transpose(1, 2))
-                part = _warp_tree(lanes)[:, 0]
-            x[:, j] = (y[:, j] - part) / L[:, j, j]
-        return x
 
     def newton_step(u, cap=None):
         ws_s, ws_p = capped(cap)
@@ -416,3 +420,26 @@ def newton_solve(
 
 
 newton_solve.launches = 0
+
+
+def solve_occupancy(N: int, Ks: int, Kp: int, P: int, B: int) -> dict:
+    """The solve kernel's footprint on the current card at these sizes:
+    shared memory per block (one block per env), blocks per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), and the waves that B
+    envs take."""
+    from sigmarl_tpu_torch.ops.build import library
+
+    lib = library("qp_newton")
+    lib.qp_newton_smem_bytes.restype = ctypes.c_size_t
+    lib.qp_newton_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.qp_newton_blocks_per_sm.restype = ctypes.c_int
+    lib.qp_newton_blocks_per_sm.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    blocks = ctypes.c_int(0)
+    err = lib.qp_newton_blocks_per_sm(N, Ks, Kp, P, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    resident = blocks.value * sms
+    return dict(smem_bytes=int(lib.qp_newton_smem_bytes(N, Ks, Kp, P)),
+                blocks_per_sm=blocks.value, sms=sms,
+                waves=(B / resident) if resident else float("inf"))

@@ -61,9 +61,10 @@ def segment_table(boundary: Tensor, tangents: Tensor, n_valid: Tensor | None = N
     )
 
 
-def pseudo_distance_seg(points: Tensor, seg: Tensor) -> Tensor:
-    """Pseudo distance against segment-table rows.
-    points [..., Q, 2]; seg [..., S, 8]. Returns [..., Q]."""
+def _seg_terms(points: Tensor, seg: Tensor) -> tuple[Tensor, Tensor]:
+    """Squared distance of every query to every segment row and whether
+    that segment counts for it (valid, lambda in its window): both
+    [..., Q, S], for points [..., Q, 2] and seg [..., S, 8]."""
     pbx = seg[..., None, :, 0]
     pby = seg[..., None, :, 1]
     cos_t = seg[..., None, :, 2]
@@ -81,8 +82,21 @@ def pseudo_distance_seg(points: Tensor, seg: Tensor) -> Tensor:
     nx = x - lam * ln
     d2 = nx * nx + y * y
     ok = valid & (lam >= -_LAM_EPS) & (lam < 1 + _LAM_EPS)
+    return d2, ok
+
+
+def pseudo_distance_seg(points: Tensor, seg: Tensor) -> Tensor:
+    """Pseudo distance against segment-table rows.
+    points [..., Q, 2]; seg [..., S, 8]. Returns [..., Q]."""
+    d2, ok = _seg_terms(points, seg)
     # Min over squared distances, one sqrt per query; sqrt(_BIG**2) is _BIG.
     return torch.sqrt(torch.where(ok, d2, _BIG * _BIG).min(dim=-1).values)
+
+
+def counting_segments(points: Tensor, seg: Tensor) -> Tensor:
+    """[..., S] bool: the segment rows that count for at least one of the
+    queries [..., Q, 2] (the rest leave every query's minimum as it is)."""
+    return _seg_terms(points, seg)[1].any(dim=-2)
 
 
 def topk_chunks(

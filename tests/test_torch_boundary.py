@@ -14,7 +14,12 @@ from sigmarl_tpu_torch.ops.boundary import (
     pseudo_distance_stencil,
     pseudo_distance_stencil_reference,
 )
-from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, topk_chunks
+from sigmarl_tpu_torch.safety.pseudo_distance import (
+    PD_CHUNK,
+    counting_segments,
+    pseudo_distance_seg,
+    topk_chunks,
+)
 from tests.torch_parity import envs, params
 
 torch.set_num_threads(1)
@@ -104,3 +109,26 @@ def test_cpu_tensors_take_the_plain_version(setup):
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     assert t.left_seg.shape[1] % PD_CHUNK == 0
+
+
+@pytest.mark.parametrize("spread", [0.05, 1.0])
+def test_counting_segments_carry_the_minimum(setup, spread):
+    """Marking every segment that counts for none of a row's queries invalid
+    leaves each query's pseudo distance exactly as it was (what the kernel's
+    segment test relies on), and the count is a small share of the path
+    when the queries are close together."""
+    _, tenv, state, _ = setup
+    t = tenv.tables
+    rng = np.random.default_rng(7)
+    pos = torch.from_numpy(np.array(state.pos)).reshape(B * N, 1, 2)
+    q = pos + torch.tensor(rng.uniform(-spread, spread, (B * N, Q, 2)), dtype=torch.float32)
+    pid = torch.from_numpy(np.array(state.path_id)).reshape(-1).long()
+    for table in (t.left_seg, t.right_seg):
+        rows = table[pid]
+        keep = counting_segments(q, rows)
+        assert keep.shape == rows.shape[:2]
+        pruned = rows.clone()
+        pruned[..., 7] = torch.where(keep, rows[..., 7], torch.zeros_like(rows[..., 7]))
+        assert torch.equal(pseudo_distance_seg(q, pruned), pseudo_distance_seg(q, rows))
+        if spread < 0.1:
+            assert float(keep.float().mean()) < 0.1

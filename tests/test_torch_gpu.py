@@ -6,6 +6,8 @@ that has only PyTorch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,8 +21,8 @@ from sigmarl_tpu_torch.ops.boundary import (
 )
 from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference
 from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter
-from sigmarl_tpu_torch.safety.pseudo_distance import topk_chunks
-from sigmarl_tpu_torch.safety.qp import kernel_inputs
+from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, topk_chunks
+from sigmarl_tpu_torch.safety.qp import StructuredConstraintSet, kernel_inputs
 from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step
 
 pytestmark = pytest.mark.gpu
@@ -70,6 +72,48 @@ def test_stencil_kernel_matches_plain(rollout):
             torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("spread", [0.5, 3.0])
+@pytest.mark.parametrize("nq", [Q, 36, 128])
+def test_stencil_kernel_matches_plain_on_spread_queries(rollout, spread, nq):
+    """Queries spread over a square of half-width 0.5 m and 3 m around each
+    row's centre: the kernel's disk test keeps far more segments there
+    (and segments whose lambda denominator changes sign), and the result
+    still equals the plain full sweep, chunked and full scan. Rows of 36
+    and 128 queries take the kernel's four-queries-per-lane branch."""
+    env, _, state, g = rollout
+    R = B * N
+    q = (state.pos.reshape(R, 1, 2)
+         + spread * (2 * torch.rand((R, nq, 2), generator=g, device="cuda") - 1)).contiguous()
+    pid = state.path_id.reshape(R).contiguous()
+    t = env.tables
+    p_ref = state.pos.reshape(R, 2)
+    sel_l = topk_chunks(t.left_chunk_cc, t.left_chunk_cr, pid, p_ref, spread * 1.5, 3)
+    sel_r = topk_chunks(t.right_chunk_cc, t.right_chunk_cr, pid, p_ref, spread * 1.5, 3)
+    for chunks in ((None, None), (sel_l, sel_r)):
+        out = pseudo_distance_stencil(q, pid, t.left_seg, t.right_seg, *chunks)
+        ref = pseudo_distance_stencil_reference(q, pid, t.left_seg, t.right_seg, *chunks)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+
+
+def test_stencil_kernel_refuses_rows_beyond_its_limits(rollout):
+    """More than 128 queries per row, or more than 16 chunks per row and
+    side, raise before a launch."""
+    env, _, state, g = rollout
+    R = B * N
+    t = env.tables
+    pid = state.path_id.reshape(R).contiguous()
+    q = state.pos.reshape(R, 1, 2).expand(R, 129, 2).contiguous()
+    before = pseudo_distance_stencil.launches
+    with pytest.raises(ValueError, match="128 queries"):
+        pseudo_distance_stencil(q, pid, t.left_seg, t.right_seg)
+    chunks = torch.zeros((R, 17), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16 chunks"):
+        pseudo_distance_stencil(q[:, :Q].contiguous(), pid, t.left_seg, t.right_seg, chunks, chunks)
+    assert pseudo_distance_stencil.launches == before
+
+
 def test_solve_kernel_matches_plain(rollout):
     """Controls after 0 and 1 iterations to atol 2e-5, F after 30
     iterations to a relative 1e-4 and at the production 3+5 budget to
@@ -94,6 +138,245 @@ def test_solve_kernel_matches_plain(rollout):
         else:
             gap = ((F_k.double() - F_p.double()).abs() / (1 + F_p.double().abs())).max()
             assert gap < tol, (it, soft, float(gap))
+
+
+def _solve_matches_plain(args, budgets=((0, 0, None), (1, 0, None), (30, 0, 1e-4), (5, 3, 1e-3))):
+    """The kernel against its plain version: controls to atol 2e-5 where no
+    tolerance is given, else F by a relative gap (the plain version sums in
+    the kernel's order, so the two differ by rounding only)."""
+    for it, soft, tol in budgets:
+        before = newton_solve.launches
+        u_k, F_k = newton_solve(*args, it, soft_iters=soft)
+        u_p, F_p = newton_solve_reference(*args, it, soft_iters=soft)
+        torch.cuda.synchronize()
+        assert newton_solve.launches == before + 1
+        assert torch.isfinite(u_k).all() and torch.isfinite(F_k).all()
+        if tol is None:
+            torch.testing.assert_close(u_k, u_p, atol=2e-5, rtol=1e-5)
+        else:
+            gap = ((F_k.double() - F_p.double()).abs() / (1 + F_p.double().abs())).max()
+            assert gap < tol, (it, soft, float(gap))
+
+
+W_U, LO, HI = (100.0, 1.0), (-5.0, -np.pi / 2), (5.0, np.pi / 2)
+
+
+def _synthetic_qp(B, N, Ks, Kp, seed):
+    """A constraint set made from a numpy seed, shaped like `assemble`'s:
+    three quarters of the single rows and two thirds of the pair rows
+    valid, slack weights from 1e2 to 1e6 before the row normalization of
+    `pack_constraints` (capped at 3e6 there), pairs over all i < j."""
+    rng = np.random.default_rng(seed)
+    pi, pj = np.triu_indices(N, 1)
+    P = len(pi)
+    f = lambda *shape, scale=1.0: torch.tensor(  # noqa: E731
+        rng.normal(0.0, scale, shape), dtype=torch.float32, device="cuda")
+    cons = StructuredConstraintSet(
+        A_s=f(B, N, Ks, 2), b_s=f(B, N, Ks, scale=2.0) + 1.0, h_s=f(B, N, Ks),
+        ws_s=torch.tensor(10 ** rng.uniform(2, 6, (B, N, Ks)), dtype=torch.float32, device="cuda"),
+        wl_s=torch.ones((B, N, Ks), device="cuda"),
+        valid_s=torch.tensor(rng.random((B, N, Ks)) < 0.75, device="cuda"),
+        A_pi=f(B, P, Kp, 2), A_pj=f(B, P, Kp, 2), b_p=f(B, P, Kp, scale=2.0) + 1.0,
+        h_p=f(B, P, Kp),
+        ws_p=torch.tensor(10 ** rng.uniform(2, 6, (B, P, Kp)), dtype=torch.float32, device="cuda"),
+        wl_p=torch.ones((B, P, Kp), device="cuda"),
+        valid_p=torch.tensor(rng.random((B, P, Kp)) < 2 / 3, device="cuda"),
+        pair_i=pi, pair_j=pj,
+    )
+    u_nom = torch.tensor(rng.uniform(-1, 1, (B, N, 2)) * np.array([6.0, 2.0]),
+                         dtype=torch.float32, device="cuda")
+    u_init = torch.tensor(rng.uniform(-1, 1, (B, N, 2)) * np.array([4.0, 1.0]),
+                          dtype=torch.float32, device="cuda")
+    return (*kernel_inputs(cons, u_nom, LO, HI, u_init, 3e6), W_U, LO, HI)
+
+
+@pytest.mark.parametrize("N, Kp", [(4, 9), (15, 18), (20, 9)])
+def test_solve_kernel_matches_plain_on_synthetic_sizes(N, Kp):
+    """N=4 (the cpm_mixed size), N=15 with Kp=18 (the grouped filter's pair
+    rows) and N=20, whose 40 x 40 system takes the shared-memory solve
+    instead of the register one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    _solve_matches_plain(_synthetic_qp(64, N, 8, Kp, seed=N + Kp))
+
+
+def test_solve_kernel_matches_plain_on_tiny_residuals():
+    """Rows whose residuals and lambda quotients are subnormal or close to
+    it, which the kernel's fast row division does not take: their envs are
+    solved again with IEEE divisions. A third of the single and pair rows
+    get zero coefficients and an offset b from 1e-45 to 1e-30, with h from
+    1 to 1e9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    singles, pairs, *rest = _synthetic_qp(64, 15, 8, 9, seed=7)
+    rng = np.random.default_rng(8)
+    for rows, coeffs, b_at, h_at in ((singles, 2, 2, 3), (pairs, 4, 4, 5)):
+        tiny = torch.tensor(rng.random(rows.shape[::2]) < 1 / 3, device="cuda")
+        size = rng.choice([1e-45, 1e-42, 1e-39, 1e-38, 1e-36, 1e-30], rows.shape[::2])
+        b = torch.tensor(size * rng.choice([-1.0, 1.0], rows.shape[::2]) * rng.random(rows.shape[::2]),
+                         dtype=torch.float32, device="cuda")
+        h = torch.tensor(10.0 ** rng.integers(0, 10, rows.shape[::2]), dtype=torch.float32,
+                         device="cuda")
+        for c in range(coeffs):
+            rows[:, c] = torch.where(tiny, torch.zeros_like(b), rows[:, c])
+        rows[:, b_at] = torch.where(tiny, b, rows[:, b_at])
+        rows[:, h_at] = torch.where(tiny, h, rows[:, h_at])
+    assert (singles[:, 2].abs() < 1.1754944e-38).logical_and(singles[:, 2] != 0).any()
+    _solve_matches_plain((singles, pairs, *rest))
+
+
+_DIV_PROBE = r"""
+#include "{csrc}/qp_newton.cu"
+namespace {{
+// form 0: the fast division and whether its range tests pass; 1: whether
+// a fast c1 (a) times a fast residual (b), and minus the residual, are
+// fast dividends (1 where the premise fails).
+__global__ void div_probe_kernel(const float* a, const float* b, float* out, unsigned char* ok,
+                                 long long n, int form) {{
+    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float inv = 1.0f / b[i];
+    if (form == 0) {{
+        out[i] = fast_div(a[i], b[i], inv);
+        ok[i] = fast_divisor(b[i]) && fast_dividend(a[i]);
+    }} else {{
+        out[i] = 0.0f;
+        ok[i] = !(fast_c1(a[i]) && fast_residual(b[i])) ||
+                (fast_dividend(a[i] * b[i]) && fast_dividend(-b[i]));
+    }}
+}}
+}}  // namespace
+extern "C" int div_probe(const float* a, const float* b, float* out, unsigned char* ok,
+                         long long n, int form) {{
+    div_probe_kernel<<<(unsigned)((n + 255) / 256), 256>>>(a, b, out, ok, n, form);
+    return (int)cudaDeviceSynchronize();
+}}
+"""
+
+
+def test_fast_division_is_the_ieee_quotient_in_its_ranges():
+    """The kernel's fast division (a multiply by the reciprocal and one
+    correction) against numpy's float32 division, bit for bit, wherever its
+    range tests let it stand (elsewhere the kernel divides by IEEE
+    division): float32 bit patterns drawn uniformly (every exponent,
+    subnormals, infinities and NaN) and operands at the edges of the
+    ranges. Operands within 2^-30 to 2^30 always stand, subnormal
+    numerators never do. And a fast residual r times a fast c1, and -r,
+    are always fast dividends."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    import ctypes
+
+    from sigmarl_tpu_torch.ops import build
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(build.BUILD_DIR, "div_probe.cu")
+    with open(src, "w") as f:
+        f.write(_DIV_PROBE.format(csrc=build.CSRC))
+    lib = build.build_sources({"div_probe": src})["div_probe"]
+    lib.div_probe.restype = ctypes.c_int
+    lib.div_probe.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
+
+    rng = np.random.default_rng(0)
+    n = 1 << 22
+
+    def log_uniform(lo, hi):  # magnitudes 2^lo .. 2^hi, random sign
+        mag = np.exp2(rng.uniform(lo, hi, n)) * rng.choice([-1.0, 1.0], n)
+        return mag.astype(np.float32)
+
+    def probe(a, b, form):
+        ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        out = torch.empty_like(ta)
+        ok = torch.empty(n, dtype=torch.uint8, device="cuda")
+        err = lib.div_probe(ta.data_ptr(), tb.data_ptr(), out.data_ptr(), ok.data_ptr(), n, form)
+        assert err == 0, f"CUDA error {err}"
+        return out.cpu().numpy(), ok.cpu().numpy().astype(bool)
+
+    bits = lambda: rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.float32)  # noqa: E731
+    cases = {
+        "ordinary": (log_uniform(-30, 30), log_uniform(-30, 30)),
+        "any bits": (bits(), bits()),
+        "subnormal numerators": (log_uniform(-149, -126), log_uniform(-30, -3)),
+        "numerators near 2^-84": (log_uniform(-88, -80), log_uniform(-42, 42)),
+        "numerators near 2^85": (log_uniform(81, 89), log_uniform(-42, 42)),
+        "divisors near 2^-40": (log_uniform(-86, 86), log_uniform(-44, -36)),
+        "divisors near 2^40": (log_uniform(-86, 86), log_uniform(36, 44)),
+        "quotients near 2^-125": (log_uniform(-90, -80), log_uniform(36, 44)),
+        "large quotients": (log_uniform(20, 30), log_uniform(-44, -36)),
+    }
+    with np.errstate(all="ignore"):
+        for name, (a, b) in cases.items():
+            want = a / b
+            got, fast = probe(a, b, 0)
+            same = ((got.view(np.uint32) == want.view(np.uint32))
+                    | (np.isnan(got) & np.isnan(want)))
+            bad = np.flatnonzero(fast & ~same)
+            assert bad.size == 0, (name, bad.size, [
+                (float(a[i]), float(b[i]), float(got[i]), float(want[i])) for i in bad[:5]])
+            if name == "ordinary":
+                assert fast.all(), (name, int((~fast).sum()))
+            elif name == "subnormal numerators":
+                assert not fast[a != 0].any(), name
+            else:
+                assert fast.any(), name
+            _, ok = probe(a, b, 1)
+            assert ok.all(), (name, int((~ok).sum()))
+        c1, r = log_uniform(-31, 41), log_uniform(-55, 45)
+        _, ok = probe(c1, r, 1)
+        assert ok.all(), ("products", int((~ok).sum()))
+
+
+def test_solve_kernel_matches_plain_at_full_batch():
+    """The main path's input at B=1024 (cpm_entire, N=15, after a warm-up
+    of filtered steps): controls after 0 and 1 iterations to atol 2e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    Bf = 1024
+    p = Parameters(
+        scenario_type="cpm_entire", n_agents=N, num_vmas_envs=Bf, dt=0.1, max_steps=1_000_000,
+        is_use_mtv_distance=False, is_obs_noise=False, is_using_cbf_testing=True,
+        is_using_centralized_cbf=True,
+    )
+    env = make_env(p, device="cuda")
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=N, newton_iters=5, newton_soft_iters=3),
+                          env.cfg, env.tables, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    state = zero_state(env.cfg, "cuda")
+    for _ in range(6):
+        act = (torch.rand((Bf, N, 2), generator=g, device="cuda") - 0.3) * env.action_limits
+        state, *_ = cbf_filtered_step(env, cbf, state, act, generator=g)
+    act = (torch.rand((Bf, N, 2), generator=g, device="cuda") - 0.3) * env.action_limits
+    cons, u_nom, _, _ = cbf.assemble(state, act)
+    lo, hi = (cbf.a_min, cbf.rate_min), (cbf.a_max, cbf.rate_max)
+    args = (*kernel_inputs(cons, u_nom, lo, hi, state.cbf_u_prev, cbf.cfg.newton_ws_cap),
+            (cbf.cfg.w_u_acc, cbf.cfg.w_u_steer), lo, hi)
+    _solve_matches_plain(args, budgets=((0, 0, None), (1, 0, None)))
+
+
+def test_stencil_kernel_gives_nan_for_a_bad_chunk(rollout):
+    """A row whose chunk index is out of range gets NaN on that side; every
+    other row matches the plain version."""
+    env, _, state, g = rollout
+    R = B * N
+    q = (state.pos.reshape(R, 1, 2)
+         + 0.05 * (2 * torch.rand((R, Q, 2), generator=g, device="cuda") - 1)).contiguous()
+    pid = state.path_id.reshape(R).contiguous()
+    t = env.tables
+    p_ref = state.pos.reshape(R, 2)
+    sel_l = topk_chunks(t.left_chunk_cc, t.left_chunk_cr, pid, p_ref, 0.1, 3).clone()
+    sel_r = topk_chunks(t.right_chunk_cc, t.right_chunk_cr, pid, p_ref, 0.1, 3)
+    bad = 5
+    n_chunks = t.left_seg.shape[1] // PD_CHUNK
+    sel_l[bad, 1] = n_chunks
+    dl, dr = pseudo_distance_stencil(q, pid, t.left_seg, t.right_seg, sel_l, sel_r)
+    torch.cuda.synchronize()
+    assert torch.isnan(dl[bad]).all()
+    keep = torch.arange(R, device="cuda") != bad
+    ok_l = sel_l.clone()
+    ok_l[bad, 1] = 0
+    rl, rr = pseudo_distance_stencil_reference(q, pid, t.left_seg, t.right_seg, ok_l, sel_r)
+    torch.testing.assert_close(dl[keep], rl[keep], atol=2e-5, rtol=0)
+    torch.testing.assert_close(dr, rr, atol=2e-5, rtol=0)
 
 
 def test_filtered_step_launches_each_kernel_once(rollout):
