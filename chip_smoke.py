@@ -26,17 +26,36 @@ Phases, in order; any failure exits non-zero before the result line:
 6. a small-input check at B=8: the card's constraint assembly, solve and
    environment step against the CPU path (the kernels' plain versions)
    from the same state with the same draws;
-7. kernel times beside each kernel's bound and its plain version's time,
-   and K1's shared memory, blocks per SM and waves, as one JSON line; then
-   the result line. `ms` (with `ms_min`, `ms_max`) is the median, least
-   and largest of 7 CUDA-event windows queued behind a spin on the card,
-   warmed up: the card's time alone. `back_to_back_ms` is the median of 7
-   windows of calls as the host issues them, which for a kernel shorter
-   than its wrapper's host cost (K2) times the host's launch rate.
-   K2's bound counts the work this input needs: every selected segment
-   tested once per row, and the exact evaluation only on the segments that
-   count for some query of the row (the bound for every segment evaluated
-   for every query is printed beside it).
+7. grouped filtering (`scripts/bench_grouped.py`'s setup: groups of at most
+   4, Kp = 18 pair rows): K1 against its plain version on a grouped input
+   with the tolerances of phase 4, 16 timed steps with one launch of each
+   kernel per step, K1's time, bound and footprint;
+8. CBF-informed training at the paper's configuration (cpm_mixed, N=4,
+   B=32, T=128, 30 epochs of minibatch 512, "cbf" reward from the
+   margins-only filter), but with observation noise off, which the port
+   does not have yet: 2 iterations of `MAPPOCAVs.train`, K2 launched 128
+   times and K1 never per iteration, finite losses, moved weights, the
+   checkpoint reloaded equal; seconds per iteration split into rollout,
+   GAE and update, and rollout frames/s;
+9. CBF-filtered training, one iteration at the main path's width (N=15,
+   B=1024, T=16, centralized filter at its 2+15 budget, minibatch 4096) and
+   one decentralized at N=4, B=32: K1 and K2 launched 16 times each, the
+   solved share, finite obs, rewards and losses; K1 against its plain
+   version and timed on the centralized input at 2+15;
+10. one PPO minibatch update on the card against the CPU at a small size
+    (loss, gradients, updated parameters);
+11. kernel times beside each kernel's bound and its plain version's time,
+    K1's shared memory, blocks per SM and waves, the launches on every
+    path above and K1's grouped and training-budget timings, as one JSON
+    line; then the result line. `ms` (with `ms_min`, `ms_max`) is the
+    median, least and largest of 7 CUDA-event windows queued behind a spin
+    on the card, warmed up: the card's time alone. `back_to_back_ms` is the
+    median of 7 windows of calls as the host issues them, which for a
+    kernel shorter than its wrapper's host cost (K2) times the host's
+    launch rate. K2's bound counts the work this input needs: every
+    selected segment tested once per row, and the exact evaluation only on
+    the segments that count for some query of the row (the bound for every
+    segment evaluated for every query is printed beside it).
 
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -47,6 +66,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -55,6 +75,21 @@ N_AGENTS, BATCH, WARMUP_STEPS, TIMED_STEPS = 15, 1024, 8, 16
 # outside the tensor cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# The two training configurations, as phases 8 and 9 run them and
+# `scripts/profile_torch_training.py` profiles them. The informed one is the
+# paper's reward sweep (`sigmarl_tpu/eval/papers.py:278-285`) with
+# observation noise off, which the port does not have yet.
+INFORMED_TRAINING = dict(
+    scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=32, dt=0.1, max_steps=128,
+    num_epochs=30, minibatch_size=512, is_use_mtv_distance=False, is_obs_noise=False,
+    rew_method="cbf", h_nom=0.2, is_using_cbf_training=True, is_solve_qp=False,
+)
+FILTERED_TRAINING = dict(
+    scenario_type="cpm_entire", n_agents=N_AGENTS, num_vmas_envs=BATCH, dt=0.1, max_steps=16,
+    num_epochs=1, minibatch_size=4096, is_use_mtv_distance=False, is_obs_noise=False,
+    rew_method="cbf", is_using_cbf_training=True, is_solve_qp=True, is_apply_cbf_action=True,
+    is_using_centralized_cbf=True,
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -211,22 +246,59 @@ def rollout(env, cbf, policy, gen, state, obs, steps):
     return state, obs, bool(finite), float(solved) / steps
 
 
+def qp_capture(cbf, state, act, group_id=None):
+    """K1's inputs and static arguments at this state and action."""
+    from sigmarl_tpu_torch.safety.qp import kernel_inputs
+
+    cfg = cbf.cfg
+    cons, u_nom, _, _ = cbf.assemble(state, act, group_id)
+    args = kernel_inputs(cons, u_nom, (cbf.a_min, cbf.rate_min), (cbf.a_max, cbf.rate_max),
+                         state.cbf_u_prev, cfg.newton_ws_cap)
+    static = ((cfg.w_u_acc, cfg.w_u_steer), (cbf.a_min, cbf.rate_min),
+              (cbf.a_max, cbf.rate_max))
+    return args, static
+
+
 def capture_kernel_inputs(env, cbf, policy, gen, state, obs):
     """The inputs the main path gives both kernels at this state."""
     from sigmarl_tpu_torch.safety.circles import circle_centers_world
-    from sigmarl_tpu_torch.safety.qp import kernel_inputs
 
-    act = policy_actions(env, policy, obs, gen)
-    cons, u_nom, _, _ = cbf.assemble(state, act)
-    cfg = cbf.cfg
-    qp_args = kernel_inputs(cons, u_nom, (cbf.a_min, cbf.rate_min), (cbf.a_max, cbf.rate_max),
-                            state.cbf_u_prev, cfg.newton_ws_cap)
-    qp_static = ((cfg.w_u_acc, cfg.w_u_steer), (cbf.a_min, cbf.rate_min),
-                 (cbf.a_max, cbf.rate_max))
+    qp_args, qp_static = qp_capture(cbf, state, policy_actions(env, policy, obs, gen))
     centers = circle_centers_world(cbf.approx, state.pos, state.rot)
     q, pid, chunks_l, chunks_r = cbf.stencil_inputs(centers, state.path_id)
     pd_args = (q, pid, env.tables.left_seg, env.tables.right_seg, chunks_l, chunks_r)
     return qp_args, qp_static, pd_args
+
+
+def check_qp(qp_args, qp_static, label: str = "", budgets=((30, 0), (5, 3))) -> float:
+    """K1 against its plain version on one input: controls after 0 and 1
+    iterations to atol 2e-5, F after 30 iterations to a relative 1e-4 and
+    at each other (stiff, soft) budget to 1e-3. Returns the largest control
+    difference."""
+    import torch
+
+    from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference
+
+    worst = 0.0
+    for it in (0, 1):
+        u_k, _ = newton_solve(*qp_args, *qp_static, it)
+        u_p, _ = newton_solve_reference(*qp_args, *qp_static, it)
+        torch.cuda.synchronize()
+        err = float((u_k - u_p).abs().max())
+        print(f"K1{label} {it} iterations: max |u_kernel - u_plain| = {err:.3e} (atol 2e-5)")
+        check(err <= 2e-5, f"K1{label} controls after {it} iterations differ by {err}")
+        worst = max(worst, err)
+    for it, soft in budgets:
+        tol = 1e-4 if (it, soft) == (30, 0) else 1e-3
+        _, F_k = newton_solve(*qp_args, *qp_static, it, soft_iters=soft)
+        _, F_p = newton_solve_reference(*qp_args, *qp_static, it, soft_iters=soft)
+        torch.cuda.synchronize()
+        gap = rel_gap(F_k, F_p)
+        print(f"K1{label} {soft}+{it} iterations: max F gap (relative to 1+|F|) = {gap:.3e} "
+              f"(< {tol})")
+        check(gap < tol and bool(torch.isfinite(F_k).all()),
+              f"K1{label} F gap {gap} at {soft}+{it}")
+    return worst
 
 
 def check_kernels(qp_args, qp_static, pd_args) -> dict:
@@ -235,24 +307,8 @@ def check_kernels(qp_args, qp_static, pd_args) -> dict:
     from sigmarl_tpu_torch.ops.boundary import (
         pseudo_distance_stencil, pseudo_distance_stencil_reference,
     )
-    from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference
 
-    errs = {"qp_newton": 0.0, "boundary_stencil": 0.0}
-    for it in (0, 1):
-        u_k, _ = newton_solve(*qp_args, *qp_static, it)
-        u_p, _ = newton_solve_reference(*qp_args, *qp_static, it)
-        torch.cuda.synchronize()
-        err = float((u_k - u_p).abs().max())
-        print(f"K1 {it} iterations: max |u_kernel - u_plain| = {err:.3e} (atol 2e-5)")
-        check(err <= 2e-5, f"K1 controls after {it} iterations differ by {err}")
-        errs["qp_newton"] = max(errs["qp_newton"], err)
-    for it, soft, tol in ((30, 0, 1e-4), (5, 3, 1e-3)):
-        _, F_k = newton_solve(*qp_args, *qp_static, it, soft_iters=soft)
-        _, F_p = newton_solve_reference(*qp_args, *qp_static, it, soft_iters=soft)
-        torch.cuda.synchronize()
-        gap = rel_gap(F_k, F_p)
-        print(f"K1 {soft}+{it} iterations: max F gap (relative to 1+|F|) = {gap:.3e} (< {tol})")
-        check(gap < tol and bool(torch.isfinite(F_k).all()), f"K1 F gap {gap} at {soft}+{it}")
+    errs = {"qp_newton": check_qp(qp_args, qp_static), "boundary_stencil": 0.0}
     q, pid, lseg, rseg, cl, cr = pd_args
     for name, chunks in (("chunked", (cl, cr)), ("full scan", (None, None))):
         out = pseudo_distance_stencil(q, pid, lseg, rseg, *chunks)
@@ -349,7 +405,247 @@ def small_input_check(dev) -> None:
     check(obs_g.shape == (B, N_AGENTS, env_g.obs_dim), f"obs shape {tuple(obs_g.shape)}")
 
 
-def kernel_report(qp_args, qp_static, pd_args, launches, errs) -> list:
+def k1_timing(qp_args, qp_static, n_iters: int, soft_iters: int) -> dict:
+    """K1 queued behind a spin at one budget, with its bound and footprint."""
+    from sigmarl_tpu_torch.ops.qp import newton_solve, solve_occupancy
+
+    singles, pairs, u0 = qp_args[:3]
+    B, d = u0.shape
+    N, P = d // 2, qp_args[5].shape[0]
+    Ks, Kp = singles.shape[-1] // N, pairs.shape[-1] // P
+    nbytes = sum(t.numel() * t.element_size() for t in qp_args) + (d + 1) * 4 * B
+    bound, by = bound_ms(B * qp_flops(N, Ks, Kp, P, n_iters, soft_iters), nbytes)
+    win = cuda_ms_windows(lambda: newton_solve(*qp_args, *qp_static, n_iters,
+                                               soft_iters=soft_iters), reps=10, queued=True)
+    occ = solve_occupancy(N, Ks, Kp, P, B)
+    return dict(N=N, B=B, Kp=Kp, budget=f"{soft_iters}+{n_iters}", **win, bound_ms=bound,
+                bound_by=by, smem_bytes=occ["smem_bytes"], blocks_per_sm=occ["blocks_per_sm"],
+                waves=occ["waves"])
+
+
+def print_k1_timing(what: str, r: dict, smi: str) -> None:
+    print(f"K1 {what} (N={r['N']}, B={r['B']}, Kp={r['Kp']}, {r['budget']}): {r['ms']:.4f} ms "
+          f"queued ({r['ms_min']:.4f} to {r['ms_max']:.4f}), bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}; {r['smem_bytes']} B of shared memory, {r['blocks_per_sm']} blocks "
+          f"per SM, {r['waves']:.2f} waves; on {smi}")
+
+
+def grouped_phase(env, policy, gen, smi) -> dict:
+    """Grouped filtering as `scripts/bench_grouped.py` sets it up (cpm_entire,
+    N=15, B=1024, groups of at most 4, 3+5 budget): K1 against its plain
+    version on a grouped input (Kp = 18), then 16 timed steps with one
+    launch of each kernel per step, and K1's time and footprint."""
+    import torch
+
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, zero_state
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.ops.qp import newton_solve
+    from sigmarl_tpu_torch.safety.grouping import group_agents_k_nearest, same_group_mask
+
+    cbf = CBFSafetyFilter(
+        CBFConfig(n_agents=N_AGENTS, n_circles=3, dt=0.1, newton_iters=5, newton_soft_iters=3),
+        env.cfg, env.tables, max_group_size=4, device=env.device,
+    )
+    state = zero_state(env.cfg, env.device)
+    obs = torch.zeros((BATCH, N_AGENTS, env.obs_dim), device=env.device)
+    state, obs, finite, _ = rollout(env, cbf, policy, gen, state, obs, WARMUP_STEPS)
+    check(finite, "non-finite values during the grouped warm-up")
+    gid = group_agents_k_nearest(state.pos, 4)
+    cross = float((~same_group_mask(gid, cbf._pi, cbf._pj)).float().mean())
+    qp_args, qp_static = qp_capture(cbf, state, policy_actions(env, policy, obs, gen), gid)
+    check(qp_args[1].shape[-1] == 18 * qp_args[5].shape[0], "grouped rows are not Kp = 18")
+    print(f"grouped input: {cross:.4f} of the pairs cross groups")
+    err = check_qp(qp_args, qp_static, " grouped")
+
+    newton_solve.launches = 0
+    pseudo_distance_stencil.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, obs, finite, solved = rollout(env, cbf, policy, gen, state, obs, TIMED_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"qp_newton": newton_solve.launches,
+                "boundary_stencil": pseudo_distance_stencil.launches}
+    print(f"grouped path: {TIMED_STEPS} steps, launches {launches}, solved share {solved:.6f}, "
+          f"{TIMED_STEPS * BATCH / elapsed:.1f} env-steps/s on {smi}")
+    check(finite, "non-finite obs, reward or u* on the grouped path")
+    for k, n in launches.items():
+        check(n == TIMED_STEPS, f"{k} launched {n} times in {TIMED_STEPS} grouped steps")
+    timing = k1_timing(qp_args, qp_static, 5, 3)
+    print_k1_timing("grouped", timing, smi)
+    return dict(launches=launches, max_abs_err=err, k1=timing)
+
+
+def _finite_losses(m) -> bool:
+    import math
+
+    keys = ("loss_objective", "loss_critic", "loss_entropy", "reward_mean")
+    return all(math.isfinite(float(m[k])) for k in keys)
+
+
+def print_iteration(what: str, i: int, m, frames: int, smi: str) -> None:
+    r, g, u = m["seconds_rollout"], m["seconds_gae"], m["seconds_update"]
+    print(f"{what} iteration {i + 1}: {r + g + u:.3f} s (rollout {r:.3f}, GAE {g:.4f}, "
+          f"update {u:.3f}), {frames / r:.1f} rollout frames/s, loss {float(m['loss_objective']):.5f}"
+          f" / {float(m['loss_critic']):.5f}; on {smi}")
+
+
+def informed_training_phase(dev, smi, workdir) -> list:
+    """CBF-informed training as the paper's reward sweep runs it
+    (`sigmarl_tpu/eval/papers.py:278-285`: cpm_mixed, N=4, B=32, T=128, 30
+    epochs of minibatch 512, the "cbf" reward with h_nom 0.2 from the
+    margins-only filter), except that observation noise is off: the port
+    does not have it yet, so the times are not the paper's exact setting.
+    2 iterations of `MAPPOCAVs.train`. K2 launches
+    once per rollout step (128 per iteration) and K1 never; losses are
+    finite, the weights move, and the checkpoint reloads equal."""
+    import numpy as np
+    import torch
+
+    from sigmarl_tpu_torch import MAPPOCAVs, Parameters
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.ops.qp import newton_solve
+    from sigmarl_tpu_torch.rl import checkpoint as ckpt
+    from sigmarl_tpu_torch.rl.networks import to_jax_params
+
+    p = Parameters(**INFORMED_TRAINING, n_iters=2, device=dev,
+                   where_to_save=os.path.join(workdir, "informed") + "/")
+    tr = MAPPOCAVs(p)
+    before = [t.detach().clone() for t in tr.parameter_list()]
+    seen = []
+
+    def progress(i, m):
+        seen.append((m, newton_solve.launches, pseudo_distance_stencil.launches))
+
+    newton_solve.launches = 0
+    pseudo_distance_stencil.launches = 0
+    _, decision, optim, *_ = tr.train(progress_callback=progress)
+    torch.cuda.synchronize()
+    per_iter, k1_prev, k2_prev = [], 0, 0
+    for i, (m, k1, k2) in enumerate(seen):
+        per_iter.append({"qp_newton": k1 - k1_prev, "boundary_stencil": k2 - k2_prev})
+        k1_prev, k2_prev = k1, k2
+        print_iteration("CBF-informed training (observation noise off)", i, m,
+                        p.frames_per_batch, smi)
+        check(_finite_losses(m), f"non-finite loss or reward in CBF-informed iteration {i + 1}")
+    print(f"CBF-informed training: launches per iteration {per_iter}")
+    for n in per_iter:
+        check(n == {"qp_newton": 0, "boundary_stencil": p.max_steps},
+              f"CBF-informed iteration launched {n}, want 0 and {p.max_steps}")
+    after = tr.parameter_list(decision.net, optim.critic)
+    check(all(not torch.equal(a, b) for a, b in zip(before, after)),
+          "a parameter tensor did not move in training")
+    p.is_load_final_model = True
+    loaded = ckpt.load_best(p)
+    for name, net in (("policy", decision.net), ("critic", optim.critic)):
+        flat = lambda t: [t["params"]["MLP_0"][k][w] for k in sorted(t["params"]["MLP_0"])  # noqa: E731
+                          for w in ("kernel", "bias")]
+        check(all(np.array_equal(a, b) for a, b in zip(flat(loaded[name]), flat(to_jax_params(net)))),
+              f"the reloaded {name} checkpoint differs")
+    print(f"CBF-informed training: checkpoints {sorted(os.listdir(ckpt.model_dir(p)))} reload equal")
+    return per_iter
+
+
+def filtered_training_phase(dev, smi, workdir) -> dict:
+    """CBF-filtered training at the main path's width (cpm_entire, N=15,
+    B=1024, T=16, centralized filter at its default 2+15 budget, one epoch
+    of minibatch 4096), then the same trainer decentralized at N=4, B=32:
+    one iteration each, K1 and K2 launched once per rollout step. Returns
+    the launches and K1's timing on the centralized input at 2+15."""
+    import math
+
+    import torch
+
+    from sigmarl_tpu_torch import MAPPOCAVs, Parameters, tanh_normal_sample
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.ops.qp import newton_solve
+
+    out = {}
+    for name, kw in (
+        ("centralized", {}),
+        ("decentralized", dict(n_agents=4, num_vmas_envs=32, is_using_centralized_cbf=False)),
+    ):
+        p = Parameters(**{**FILTERED_TRAINING, **kw}, n_iters=1, device=dev,
+                       where_to_save=os.path.join(workdir, "filtered") + "/")
+        tr = MAPPOCAVs(p)
+        state = tr.initial_state()
+        newton_solve.launches = 0
+        pseudo_distance_stencil.launches = 0
+        state, m = tr.train_iteration(state)
+        torch.cuda.synchronize()
+        launches = {"qp_newton": newton_solve.launches,
+                    "boundary_stencil": pseudo_distance_stencil.launches}
+        solved = float(m["cbf_solved_share"])
+        print_iteration(f"CBF-filtered training ({name}, N={p.n_agents}, B={p.num_vmas_envs})", 0,
+                        m, p.frames_per_batch, smi)
+        print(f"CBF-filtered training ({name}): launches {launches}, solved share {solved:.6f}")
+        check(_finite_losses(m) and bool(torch.isfinite(state.obs).all()),
+              f"non-finite obs, reward or loss in {name} filtered training")
+        check(math.isfinite(solved), f"no solved share in {name} filtered training")
+        for k, n in launches.items():
+            check(n == p.max_steps, f"{k} launched {n} times in {p.max_steps} {name} steps")
+        out[name] = launches
+        if name == "centralized":
+            with torch.no_grad():
+                loc, scale = state.policy(state.obs)
+                act, _ = tanh_normal_sample(loc, scale, tr.low, tr.high, generator=tr.generator)
+            qp_args, qp_static = qp_capture(tr.cbf_filter, state.env_state, act)
+            check_qp(qp_args, qp_static, " 2+15 input", budgets=((30, 0), (15, 2)))
+            out["k1"] = k1_timing(qp_args, qp_static, 15, 2)
+            print_k1_timing("at the training budget", out["k1"], smi)
+    return out
+
+
+def ppo_update_check(dev) -> None:
+    """One PPO minibatch update on the card against the CPU at a small
+    size (cpm_mixed, N=4, the 3x256 networks, 64 frames), from the same
+    weights, minibatch and entropy noise: the loss to a relative 1e-5, the
+    gradients to atol 1e-5 and relative 1e-4, and the updated parameters to
+    atol 1e-6 wherever both gradients exceed 1e-6 in magnitude (elsewhere
+    Adam's first step is +-lr by the gradient's sign, which may part)."""
+    import torch
+
+    from sigmarl_tpu_torch import MAPPOCAVs, Parameters, tanh_normal_sample
+
+    kw = dict(scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=4, dt=0.1, max_steps=16,
+              n_iters=2, num_epochs=1, minibatch_size=64, is_use_mtv_distance=False,
+              is_obs_noise=False)
+    trs = {d: MAPPOCAVs(Parameters(**kw, device=d)) for d in ("cpu", dev)}
+    g = torch.Generator().manual_seed(7)
+    D = trs["cpu"].env.obs_dim
+    mb = {"obs": torch.randn((64, 4, D), generator=g)}
+    with torch.no_grad():
+        loc, scale = trs["cpu"].policy_net(mb["obs"])
+        mb["action"], mb["log_prob"] = tanh_normal_sample(
+            loc, scale, trs["cpu"].low, trs["cpu"].high, generator=g)
+    mb["log_prob"] = mb["log_prob"] + 0.1 * torch.randn((64, 4), generator=g)
+    mb["adv"], mb["vt"] = torch.randn((64, 4), generator=g), torch.randn((64, 4), generator=g)
+    noise = torch.randn((64, 4, 2), generator=g)
+    res = {}
+    for d, tr in trs.items():
+        params = tr.parameter_list()
+        total, _ = tr.loss(tr.policy_net, tr.critic_net, {k: v.to(d) for k, v in mb.items()},
+                           noise.to(d))
+        grads = torch.autograd.grad(total, params)
+        before = [t.detach().clone() for t in params]
+        tr.optimizer.step(params, grads, tr.optimizer.init(params))
+        res[d] = (float(total.detach()), [x.cpu() for x in grads], [t.detach().cpu() for t in params],
+                  [t.cpu() for t in before])
+    (lc, gc, pc, bc), (lg, gg, pg, bg) = res["cpu"], res[dev]
+    check(all(torch.equal(a, b) for a, b in zip(bc, bg)), "the two trainers start apart")
+    loss_gap = abs(lg - lc) / abs(lc)
+    g_err = max(float(((a - b).abs() - 1e-4 * b.abs()).max()) for a, b in zip(gg, gc))
+    p_err = max(float(torch.where((a.abs() > 1e-6) & (b.abs() > 1e-6), (x - y).abs(), 0.0).max())
+                for a, b, x, y in zip(gg, gc, pg, pc))
+    print(f"PPO minibatch update, card vs CPU: loss relative gap {loss_gap:.3e} (< 1e-5), "
+          f"gradients max |d| - 1e-4 |g| = {g_err:.3e} (<= 1e-5), updated parameters "
+          f"{p_err:.3e} (atol 1e-6 where both |g| > 1e-6)")
+    check(loss_gap < 1e-5, f"PPO loss differs by a relative {loss_gap}")
+    check(g_err <= 1e-5, f"PPO gradients differ by {g_err}")
+    check(p_err <= 1e-6, f"updated parameters differ by {p_err}")
+
+
+def kernel_report(qp_args, qp_static, pd_args, launches, errs, paths) -> list:
     import torch
 
     from sigmarl_tpu_torch.ops.boundary import (
@@ -389,7 +685,7 @@ def kernel_report(qp_args, qp_static, pd_args, launches, errs) -> list:
              max_abs_err=errs["qp_newton"], **cuda_ms_windows(k1, reps=20, queued=True),
              back_to_back_ms=cuda_ms_windows(k1, reps=20)["ms"],
              plain_ms=cuda_ms(k1_plain, reps=2), bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=None),
+             library_ms=None, launches_by_path=paths["qp_newton"], variants=paths["k1"]),
         dict(name="boundary_stencil", route="cuda",
              source="sigmarl_tpu_torch/csrc/boundary_stencil.cu",
              replaces="sigmarl_tpu/ops/boundary_pallas.py:89",
@@ -397,7 +693,7 @@ def kernel_report(qp_args, qp_static, pd_args, launches, errs) -> list:
              **cuda_ms_windows(k2, reps=200, queued=True),
              back_to_back_ms=cuda_ms_windows(k2, reps=200)["ms"],
              plain_ms=cuda_ms(k2_plain, reps=20), bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None),
+             library_ms=None, launches_by_path=paths["boundary_stencil"]),
     ]
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms queued behind a spin, the card's time alone "
@@ -425,6 +721,7 @@ def main() -> int:
     from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
     from sigmarl_tpu_torch.ops.qp import newton_solve
 
+    t_start = time.perf_counter()
     dev = "cuda"
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -468,7 +765,23 @@ def main() -> int:
           f"({elapsed / TIMED_STEPS * 1e3:.2f} ms/step) on {smi}")
 
     small_input_check(dev)
-    rows = kernel_report(qp_args, qp_static, pd_args, launches, errs)
+
+    grouped = grouped_phase(env, policy, gen, smi)
+    os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(HERE, "outputs")) as wd:
+        informed = informed_training_phase(dev, smi, wd)
+        filtered = filtered_training_phase(dev, smi, wd)
+    ppo_update_check(dev)
+
+    paths = {k: {"main": launches[k], "grouped": grouped["launches"][k],
+                 "cbf_informed_training_per_iteration": [n[k] for n in informed],
+                 "cbf_filtered_training_centralized": filtered["centralized"][k],
+                 "cbf_filtered_training_decentralized": filtered["decentralized"][k]}
+             for k in launches}
+    paths["k1"] = [dict(input="grouped", **grouped["k1"]),
+                   dict(input="filtered training", **filtered["k1"])]
+    rows = kernel_report(qp_args, qp_static, pd_args, launches, errs, paths)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,9 +1,10 @@
 """sigmarl_tpu_torch — the PyTorch/CUDA port of `sigmarl_tpu`.
 
-A second package beside the JAX one: the CBF-QP-filtered rollout step of
-the road-traffic simulator (policy, centralized safety filter, environment
-step) on tensors, with the two hot kernels written in CUDA for Hopper
-(`ops/qp.py`, `ops/boundary.py`, sources under `csrc/`). Entry points run
+A second package beside the JAX one: the road-traffic simulator, the
+CBF-QP safety filter (centralized, decentralized, grouped or margins-only)
+and MAPPO training (`rl/`, `python -m sigmarl_tpu_torch.main_training`) on
+tensors, with the two hot kernels written in CUDA for Hopper (`ops/qp.py`,
+`ops/boundary.py`, sources under `csrc/`). Entry points run
 on `cuda` unless the caller passes `device="cpu"`, where every kernel runs
 its plain PyTorch version. The package imports nothing of JAX.
 """
@@ -14,10 +15,13 @@ from sigmarl_tpu_torch.config import Parameters  # noqa: F401
 from sigmarl_tpu_torch.constants import AGENTS, SCENARIOS, THRESHOLD  # noqa: F401
 from sigmarl_tpu_torch.env.env import RoadTrafficEnv, make_env  # noqa: F401
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, zero_state  # noqa: F401
+from sigmarl_tpu_torch.rl.mappo_cavs import MAPPOCAVs, mappo_cavs  # noqa: F401
 from sigmarl_tpu_torch.rl.networks import (  # noqa: F401
+    CentralizedCritic,
     PolicyNet,
+    critic_from_jax_params,
     policy_from_jax_params,
     tanh_normal_sample,
 )
 from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter, CBFStepInfo  # noqa: F401
-from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step  # noqa: F401
+from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step, cbf_margin_step  # noqa: F401

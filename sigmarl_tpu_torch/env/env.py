@@ -172,6 +172,11 @@ class RoadTrafficEnv:
         return done, reset_mask
 
 
+REWARD_METHODS = (
+    "distance", "ttc", "cbf", "sparse", "distance_sparse", "ttc_sparse", "cbf_sparse"
+)
+
+
 def _check_ported(p: Parameters) -> None:
     unported = {
         "the challenging initial-state buffer": p.is_challenging_initial_state_buffer,
@@ -185,9 +190,7 @@ def _check_ported(p: Parameters) -> None:
         "opponent modeling": p.is_using_opponent_modeling,
         "prioritized MARL": p.is_using_prioritized_marl,
         "experiment_type 'lab' (reset_from_poses)": p.experiment_type != "simulation",
-        f"the {p.rew_method!r} reward method": not any(
-            p.rew_method in (m, m + "_sparse") for m in ("distance", "ttc")
-        ),
+        f"the {p.rew_method!r} reward method": p.rew_method not in REWARD_METHODS,
     }
     for what, on in unported.items():
         if on:

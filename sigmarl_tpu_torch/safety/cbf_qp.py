@@ -1,4 +1,5 @@
-"""Batched truncated-Taylor CBF-QP safety filter (centralized, RL nominal).
+"""Batched truncated-Taylor CBF-QP safety filter (RL nominal controller):
+centralized, decentralized or grouped, or margins-only.
 
 Per step, per env:
 - vehicles are over-approximated by C circles (`circles.py`),
@@ -14,6 +15,13 @@ Per step, per env:
 - solve (the CUDA kernel of `ops/qp.py`), fall back to the nominal action
   where the solution is not finite, and write the safe action back as
   (speed, steering) targets.
+
+Decentralized filtering drops the other agent's control from every pair
+row (each agent treats it as fixed). Grouped filtering (`max_group_size >
+0`) keeps pair rows coupled inside a group and splits a cross-group pair
+into an i-sided and a j-sided row. Margins-only mode (`is_solve_qp=False`)
+folds the fixed gain into the constants and feeds the CBF-informed reward
+(`nominal_margin_rewards`) without solving.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState
 from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
 from sigmarl_tpu_torch.safety.circles import CircleApproximation, circle_centers_world
+from sigmarl_tpu_torch.safety.grouping import group_agents_k_nearest, same_group_mask
 from sigmarl_tpu_torch.safety.kinematics import CenterKinematics, center_kinematics
 from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, topk_chunks
 from sigmarl_tpu_torch.safety.qp import StructuredConstraintSet, solve_structured_qp
@@ -113,7 +122,7 @@ _STENCIL = np.array(
 
 
 class CBFSafetyFilter:
-    """Batched centralized CBF-QP filter over all envs at once.
+    """Batched CBF-QP filter over all envs at once.
 
     Runs on `device` (`cuda` unless the caller passes another); the map
     tables must live there too.
@@ -129,13 +138,10 @@ class CBFSafetyFilter:
         device: str | torch.device | None = None,
     ):
         unported = {
-            "decentralized filtering": decentralized,
-            "grouped filtering (max_group_size > 0)": max_group_size > 0,
             "the CLF nominal controller": cfg.nom_controller_type != "rl",
             "fp16_parity": cfg.fp16_parity,
             "the windowed pseudo-distance": cfg.use_windowed_pseudo_distance,
             "observation noise in the filter": cfg.is_obs_noise,
-            "margins-only mode (is_solve_qp=False)": not cfg.is_solve_qp,
         }
         for what, on in unported.items():
             if on:
@@ -148,6 +154,9 @@ class CBFSafetyFilter:
         self.cfg = cfg
         self.env_cfg = env_cfg
         self.tables = tables
+        self.decentralized = decentralized
+        self.max_group_size = max_group_size
+        self.grouped = max_group_size > 0
         self.approx = CircleApproximation(AGENTS["length"], AGENTS["width"], cfg.n_circles)
         self.v_min, self.v_max = AGENTS["min_speed"], AGENTS["max_speed"]
         self.steer_min, self.steer_max = AGENTS["min_steering"], AGENTS["max_steering"]
@@ -166,7 +175,8 @@ class CBFSafetyFilter:
         )
 
     def _wl_value(self) -> float:
-        """The uniform lambda penalty weight of every row."""
+        """The lambda penalty weight of every row (grouped mode's cross
+        rows take `lambda_weight` instead)."""
         cfg = self.cfg
         return cfg.lambda_weight if cfg.adaptive_lambda_cost else 1e-9
 
@@ -284,13 +294,14 @@ class CBFSafetyFilter:
         return A_i, A_j, b0, h
 
     def assemble(
-        self, state: WorldState, rl_actions: Tensor
+        self, state: WorldState, rl_actions: Tensor, group_id: Tensor | None = None
     ) -> Tuple[StructuredConstraintSet, Tensor, Tensor, Dict[str, Tensor]]:
         """Build the batched constraint set (block-sparse form) and the
         nominal input. Returns (constraints, u_nom [B,N,2], rl_clamped
         [B,N,2], aux dict for the margins). Rows per agent: 2C lane rows
         (circle x side) + 2 CLF rows (invalid under the RL nominal); per
-        pair: C^2 coupled rows."""
+        pair: C^2 coupled rows, and in grouped mode (with `group_id`
+        [B, N]) C^2 more j-sided rows."""
         cfg = self.cfg
         B, N = state.pos.shape[:2]
         C = cfg.n_circles
@@ -327,7 +338,26 @@ class CBFSafetyFilter:
 
         P = self._pair_i.shape[0]
         Kp = C * C
+        if self.decentralized:
+            # Each agent treats the other's control as fixed.
+            A_pj = torch.zeros_like(A_pj)
+        A_pi_f, A_pj_f = A_pi.reshape(B, P, Kp, 2), A_pj.reshape(B, P, Kp, 2)
+        b0_pf, h_pf = b0_p.reshape(B, P, Kp), h_p.reshape(B, P, Kp)
         wl = self._wl_value()
+        ws_pf = torch.full((B, P, Kp), cfg.pair_slack_weight, dtype=f32, device=dev)
+        wl_pf = torch.full((B, P, Kp), wl, dtype=f32, device=dev)
+        valid_p = torch.ones((B, P, Kp), dtype=torch.bool, device=dev)
+        if self.grouped and group_id is not None:
+            A_pi_f, A_pj_f, b0_pf, h_pf, ws_pf, wl_pf, valid_p = self._split_cross_pairs(
+                group_id, A_pi_f, A_pj_f, b0_pf, h_pf
+            )
+        if not cfg.is_solve_qp:
+            # Non-adaptive gain: fold lambda_ttcbf * h into the constants
+            # (the CLF rows carry h = 0).
+            b0_s = b0_s + cfg.lambda_ttcbf * h_s
+            b0_pf = b0_pf + cfg.lambda_ttcbf * h_pf
+            h_s = torch.zeros_like(h_s)
+            h_pf = torch.zeros_like(h_pf)
         cons = StructuredConstraintSet(
             A_s=A_s,
             b_s=b0_s,
@@ -335,13 +365,13 @@ class CBFSafetyFilter:
             ws_s=ws_s,
             wl_s=torch.full((B, N, Ks), wl, dtype=f32, device=dev),
             valid_s=valid_s,
-            A_pi=A_pi.reshape(B, P, Kp, 2),
-            A_pj=A_pj.reshape(B, P, Kp, 2),
-            b_p=b0_p.reshape(B, P, Kp),
-            h_p=h_p.reshape(B, P, Kp),
-            ws_p=torch.full((B, P, Kp), cfg.pair_slack_weight, dtype=f32, device=dev),
-            wl_p=torch.full((B, P, Kp), wl, dtype=f32, device=dev),
-            valid_p=torch.ones((B, P, Kp), dtype=torch.bool, device=dev),
+            A_pi=A_pi_f,
+            A_pj=A_pj_f,
+            b_p=b0_pf,
+            h_p=h_pf,
+            ws_p=ws_pf,
+            wl_p=wl_pf,
+            valid_p=valid_p,
             pair_i=self._pair_i,
             pair_j=self._pair_j,
         )
@@ -359,14 +389,48 @@ class CBFSafetyFilter:
         }
         return cons, u_nom, rl_clamped, aux
 
+    def _split_cross_pairs(self, group_id: Tensor, A_pi, A_pj, b0, h):
+        """Grouped mode's pair block [B, P, 2*C^2]: same-group rows stay
+        coupled; a cross-group pair becomes an i-sided row (in the first
+        C^2) and a j-sided row (in the second C^2, invalid for same-group
+        pairs). Each side carries half the drift constant and an `rs`
+        share of the relaxation with its own lambda, so the two together
+        give back the coupled row; cross rows take `cross_slack_weight`
+        and are always `lambda_weight`-regularised. In margins-only mode
+        the cross rows are the full inactive row with lambda fixed at 1
+        (pre-compensated for the fold of lambda_ttcbf * h that follows)."""
+        cfg = self.cfg
+        B, P, Kp = b0.shape
+        same = same_group_mask(group_id, self._pi, self._pj)[..., None].expand(B, P, Kp)
+        if cfg.is_solve_qp:
+            b0_cross, h_cross = 0.5 * b0, cfg.rs * h
+        else:
+            b0_cross, h_cross = b0 + (1.0 - cfg.lambda_ttcbf) * h, h
+        cross_ws = b0.new_full((B, P, Kp), cfg.cross_slack_weight)
+        cross_wl = b0.new_full((B, P, Kp), cfg.lambda_weight)
+        return (
+            torch.cat([A_pi, torch.zeros_like(A_pi)], dim=2),
+            torch.cat([torch.where(same[..., None], A_pj, 0.0),
+                       torch.where(same[..., None], 0.0, A_pj)], dim=2),
+            torch.cat([torch.where(same, b0, b0_cross), b0_cross], dim=2),
+            torch.cat([torch.where(same, h, h_cross), h_cross], dim=2),
+            torch.cat([torch.where(same, cfg.pair_slack_weight, cross_ws), cross_ws], dim=2),
+            torch.cat([torch.where(same, self._wl_value(), cross_wl), cross_wl], dim=2),
+            torch.cat([torch.ones_like(same), ~same], dim=2),
+        )
+
     def filter_actions(
         self, state: WorldState, rl_actions: Tensor, u_init: Tensor | None = None
     ) -> CBFStepInfo:
         """Solve the batched CBF-QP and return safe (speed, steering)
         targets. `u_init` (the previous step's solution) warm-starts the
-        Newton iteration."""
+        Newton iteration. Grouped mode groups the agents of every env by
+        position first."""
         cfg = self.cfg
-        cons, u_nom, rl_clamped, aux = self.assemble(state, rl_actions)
+        group_id = None
+        if self.grouped:
+            group_id = group_agents_k_nearest(state.pos, self.max_group_size)
+        cons, u_nom, rl_clamped, aux = self.assemble(state, rl_actions, group_id)
         u_star, F = solve_structured_qp(
             cons, u_nom,
             (cfg.w_u_acc, cfg.w_u_steer), (self.a_min, self.rate_min),
@@ -404,6 +468,12 @@ class CBFSafetyFilter:
             u_star=u_star,
             **margins,
         )
+
+    def nominal_margin_rewards(self, state: WorldState, rl_actions: Tensor) -> Dict[str, Tensor]:
+        """Margins-only mode: the CBF-informed shaping rewards at the
+        nominal action, from the assembled rows without a solve."""
+        _, u_nom, _, aux = self.assemble(state, rl_actions)
+        return self._margins_from_aux(u_nom, aux)
 
     def _margins_from_aux(self, u_nom: Tensor, aux: Dict[str, Tensor]) -> Dict[str, Tensor]:
         """Per-agent shaping rewards from the constraint margins at u_nom

@@ -1,5 +1,6 @@
-"""CBF-constrained environment step: the filter runs between the policy
-and the env step."""
+"""CBF-constrained environment steps: the filter runs between the policy
+and the env step (`cbf_filtered_step`), or only its margins feed the
+reward (`cbf_margin_step`)."""
 
 from __future__ import annotations
 
@@ -46,3 +47,26 @@ def cbf_filtered_step(
         cbf_action_deviation=torch.abs(finfo.safe_actions - finfo.nominal_actions),
     )
     return state, obs, reward, done, info
+
+
+def cbf_margin_step(
+    env: RoadTrafficEnv,
+    cbf: CBFSafetyFilter,
+    state: WorldState,
+    rl_actions: torch.Tensor,
+    generator: torch.Generator | None = None,
+    reset_draws: ResetDraws | None = None,
+):
+    """One env step in margins-only mode (CBF-informed training,
+    `is_solve_qp=False`): the shaping rewards from the constraint margins
+    at the nominal action are written into the state for the "cbf" reward
+    method, then the env steps with the unfiltered action. Returns
+    (state', obs, reward, done, info)."""
+    rews = cbf.nominal_margin_rewards(state, rl_actions)
+    state = replace_state(
+        state,
+        rew_near_left_lane=rews["rew_near_left_lane"],
+        rew_near_right_lane=rews["rew_near_right_lane"],
+        rew_near_other_agents_cbf=rews["rew_near_other_agents"],
+    )
+    return env.step(state, rl_actions, generator=generator, reset_draws=reset_draws)

@@ -90,14 +90,14 @@ def test_step_matches_jax(pair, rew_method, with_reset):
 
 
 def test_package_imports_no_jax():
-    """Importing every module of the port leaves no JAX and no module of
-    the JAX package in sys.modules."""
+    """Importing every module of the port leaves no JAX, flax or optax and
+    no module of the JAX package in sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sigmarl_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'flax'))\n"
+        "bad = sorted(n for n in sys.modules if n in ('jax', 'optax') or n.startswith(('jax.', 'jaxlib', 'flax', 'optax.'))\n"
         "             or n == 'sigmarl_tpu' or n.startswith('sigmarl_tpu.'))\n"
         "print(len([n for n in sys.modules if n.startswith('sigmarl_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -143,7 +143,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         dict(is_obs_noise=True),
         dict(is_using_opponent_modeling=True),
         dict(is_using_prioritized_marl=True),
-        dict(rew_method="cbf"),
+        dict(experiment_type="lab"),
     ],
 )
 def test_unported_env_options_raise(flag):
@@ -157,8 +157,8 @@ def test_unported_env_options_raise(flag):
 @pytest.mark.parametrize(
     "cbf_kw, filter_kw",
     [
-        ({}, dict(decentralized=True)),
-        ({}, dict(max_group_size=4)),
+        (dict(is_obs_noise=True), dict(decentralized=True)),
+        (dict(fp16_parity=True), dict(max_group_size=4)),
         (dict(nom_controller_type="clf"), {}),
         (dict(fp16_parity=True), {}),
         (dict(use_windowed_pseudo_distance=True), {}),

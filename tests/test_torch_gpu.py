@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-rollout-like sizes. Every test here needs a CUDA device (marker `gpu`) and
-skips without one. The file imports no JAX, so it also runs on a machine
-that has only PyTorch:
+rollout-like sizes, and the kernels' launches in training iterations and
+the training entry point on the card. Every test here needs a CUDA
+device (marker `gpu`) and skips without one. The file imports no JAX, so
+it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -389,3 +390,73 @@ def test_filtered_step_launches_each_kernel_once(rollout):
     assert pseudo_distance_stencil.launches == k2 + 1
     assert torch.isfinite(obs).all() and torch.isfinite(rew).all()
     assert obs.shape == (B, N, env.obs_dim) and np.isfinite(info["cbf_max_violation"].cpu()).all()
+
+
+@pytest.mark.parametrize("mode", ["grouped", "decentralized"])
+def test_solve_kernel_matches_plain_on_filter_modes(rollout, mode):
+    """K1 on a real grouped input (groups of at most 4: 2 * 9 pair rows,
+    row-varying slack and lambda weights) and a real decentralized input
+    (every j-sided coefficient zero), at the trainer's 2+15 budget and
+    after 0, 1 and 30 iterations."""
+    from sigmarl_tpu_torch.safety.grouping import group_agents_k_nearest
+
+    env, _, state, g = rollout
+    kw = dict(max_group_size=4) if mode == "grouped" else dict(decentralized=True)
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=N), env.cfg, env.tables, device="cuda", **kw)
+    act = (torch.rand((B, N, 2), generator=g, device="cuda") - 0.3) * env.action_limits
+    gid = group_agents_k_nearest(state.pos, 4) if mode == "grouped" else None
+    cons, u_nom, _, _ = cbf.assemble(state, act, gid)
+    if mode == "grouped":
+        assert cons.b_p.shape[-1] == 18 and bool(cons.valid_p[..., 9:].any())
+        assert cons.wl_p.unique().numel() > 1  # cross rows: lambda_weight
+    else:
+        assert not bool(cons.A_pj.any())
+    lo, hi = (cbf.a_min, cbf.rate_min), (cbf.a_max, cbf.rate_max)
+    args = (*kernel_inputs(cons, u_nom, lo, hi, state.cbf_u_prev, cbf.cfg.newton_ws_cap),
+            (cbf.cfg.w_u_acc, cbf.cfg.w_u_steer), lo, hi)
+    _solve_matches_plain(args, budgets=((0, 0, None), (1, 0, None), (30, 0, 1e-4), (15, 2, 1e-3)))
+
+
+@pytest.mark.parametrize("mode", ["filtered", "informed", "decentralized"])
+def test_training_iteration_launches_on_the_card(tmp_path, mode):
+    """One MAPPO iteration on the card (N=4, B=8, T=8): CBF-filtered
+    training launches K1 and K2 once per rollout step, CBF-informed
+    (margins-only) training K2 once per step and K1 never; losses and the
+    next observations are finite."""
+    from sigmarl_tpu_torch.rl.mappo_cavs import MAPPOCAVs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    T = 8
+    flags = {
+        "filtered": dict(is_solve_qp=True, is_apply_cbf_action=True, is_using_centralized_cbf=True),
+        "decentralized": dict(is_solve_qp=True, is_apply_cbf_action=True),
+        "informed": dict(is_solve_qp=False),
+    }[mode]
+    p = Parameters(
+        scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=8, dt=0.1, max_steps=T, n_iters=2,
+        num_epochs=2, minibatch_size=32, is_use_mtv_distance=False, is_obs_noise=False,
+        rew_method="cbf", is_using_cbf_training=True, where_to_save=str(tmp_path) + "/",
+        device="cuda", **flags,
+    )
+    tr = MAPPOCAVs(p)
+    state = tr.initial_state()
+    k1, k2 = newton_solve.launches, pseudo_distance_stencil.launches
+    state, m = tr.train_iteration(state)
+    torch.cuda.synchronize()
+    assert newton_solve.launches - k1 == (0 if mode == "informed" else T)
+    assert pseudo_distance_stencil.launches - k2 == T
+    assert np.isfinite(float(m["loss_objective"])) and np.isfinite(float(m["loss_critic"]))
+    assert bool(torch.isfinite(state.obs).all()) and state.opt_state.count == 4
+
+
+def test_main_training_on_the_card(tmp_path, capsys):
+    from sigmarl_tpu_torch import main_training
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    main_training.main(["--device", "cuda", "--n_iters", "1", "--num_vmas_envs", "4",
+                        "--max_steps", "8", "--where_to_save", str(tmp_path) + "/"])
+    (d,) = os.listdir(tmp_path)
+    assert {"info.txt", "final_policy.pkl", "final_critic.pkl"} <= set(os.listdir(tmp_path / d))
+    assert "iter 1/1" in capsys.readouterr().out

@@ -13,6 +13,8 @@ import torch
 import sigmarl_tpu.config as jcfg
 import sigmarl_tpu_torch.config as tcfg
 from sigmarl_tpu.env import make_env as jax_make_env
+from sigmarl_tpu.env.env import RoadTrafficEnv as JEnv
+from sigmarl_tpu_torch.env.env import RoadTrafficEnv as TEnv
 from sigmarl_tpu_torch.env.env import make_env as torch_make_env
 from sigmarl_tpu_torch.env.reset import ResetDraws
 from sigmarl_tpu_torch.env.structs import WorldState
@@ -36,6 +38,13 @@ def envs(**kw):
     return jenv, tenv
 
 
+def env_variant(jenv, tenv, **changes):
+    """Both envs with their configs changed (reward method, flags) and
+    the same map tables, without building the tables again."""
+    return (JEnv(dataclasses.replace(jenv.cfg, **changes), jenv.tables),
+            TEnv(dataclasses.replace(tenv.cfg, **changes), tenv.tables, tenv.device))
+
+
 def to_torch_state(state) -> WorldState:
     return WorldState(
         **{f.name: torch.from_numpy(np.array(getattr(state, f.name)))
@@ -47,21 +56,27 @@ def to_numpy(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def reset_draws(key, cfg) -> ResetDraws:
-    """The random numbers the JAX package's `apply_reset(..., key)` draws."""
+def reset_draw_arrays(key, cfg):
+    """The random numbers the JAX package's `apply_reset(..., key)` draws,
+    as JAX arrays (scenario Gumbel noise or None, path, point and speed
+    uniforms); traceable, so it maps over a batch of keys with `jax.vmap`."""
     B, N, T = cfg.batch_dim, cfg.n_agents, cfg.max_spawn_tries
     k_scen, k_spawn, k_speed = jax.random.split(key, 3)
     k_path, k_point = jax.random.split(k_spawn)
     gumbel = None
     if cfg.scenario_type == "cpm_mixed":
-        gumbel = torch.from_numpy(np.asarray(jax.random.gumbel(k_scen, (B, 3))))
-    t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
-    return ResetDraws(
-        scenario_gumbel=gumbel,
-        path_u=t(jax.random.uniform(k_path, (B, N, T))),
-        point_u=t(jax.random.uniform(k_point, (B, N, T))),
-        speed_u=t(jax.random.uniform(k_speed, (B, N))),
-    )
+        gumbel = jax.random.gumbel(k_scen, (B, 3))
+    return (gumbel, jax.random.uniform(k_path, (B, N, T)),
+            jax.random.uniform(k_point, (B, N, T)), jax.random.uniform(k_speed, (B, N)))
+
+
+def as_reset_draws(arrays) -> ResetDraws:
+    return ResetDraws(*(None if a is None else torch.from_numpy(np.array(a)) for a in arrays))
+
+
+def reset_draws(key, cfg) -> ResetDraws:
+    """The random numbers the JAX package's `apply_reset(..., key)` draws."""
+    return as_reset_draws(reset_draw_arrays(key, cfg))
 
 
 def step_reset_draws(key, cfg) -> ResetDraws:
