@@ -32,11 +32,10 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel per step, K1's time, bound and footprint;
 8. CBF-informed training at the paper's configuration (cpm_mixed, N=4,
    B=32, T=128, 30 epochs of minibatch 512, "cbf" reward from the
-   margins-only filter), but with observation noise off, which the port
-   does not have yet: 2 iterations of `MAPPOCAVs.train`, K2 launched 128
-   times and K1 never per iteration, finite losses, moved weights, the
-   checkpoint reloaded equal; seconds per iteration split into rollout,
-   GAE and update, and rollout frames/s;
+   margins-only filter, observation noise on): 2 iterations of
+   `MAPPOCAVs.train`, K2 launched 128 times and K1 never per iteration,
+   finite losses, moved weights, the checkpoint reloaded equal; seconds per
+   iteration split into rollout, GAE and update, and rollout frames/s;
 9. CBF-filtered training, one iteration at the main path's width (N=15,
    B=1024, T=16, centralized filter at its 2+15 budget, minibatch 4096) and
    one decentralized at N=4, B=32: K1 and K2 launched 16 times each, the
@@ -44,15 +43,33 @@ Phases, in order; any failure exits non-zero before the result line:
    version and timed on the centralized input at 2+15;
 10. one PPO minibatch update on the card against the CPU at a small size
     (loss, gradients, updated parameters);
-11. kernel times beside each kernel's bound and its plain version's time,
+11. XP-MARL as the ICRA'25 priority comparison runs it (cpm_mixed, N=4,
+    B=32, T=128, 30 epochs of minibatch 512, observation noise on, no MTV
+    distance): one iteration with learned and one with random priority,
+    then one with opponent modeling in the same setting. Finite losses (the
+    priority loss under learned priority), every network moved (all four
+    under learned priority), every env's rank a permutation of 0..N-1, N
+    policy calls per rollout step in the propagation loop (2 with opponent
+    modeling), no kernel launched; the split of each iteration;
+12. wide XP-MARL with a CBF-filtered rollout on the `Parameters` defaults
+    (MTV distance and observation noise on): cpm_entire, N=15, B=1024,
+    T=16, learned priority with communication noise, the centralized
+    filter at its 2+15 budget, one epoch of minibatch 4096: K1 and K2
+    launched 16 times each, 15 policy calls per step, the solved share,
+    finite obs, rewards and losses;
+13. card against CPU at a small size, the same weights and draws: one
+    XP-MARL propagation step (N=4, B=8; actions to atol 1e-5) and one env
+    step with the MTV distance, observation noise and a history of 2 (the
+    tolerances of phase 6);
+14. kernel times beside each kernel's bound and its plain version's time,
     K1's shared memory, blocks per SM and waves, the launches on every
-    path above and K1's grouped and training-budget timings, as one JSON
-    line; then the result line. `ms` (with `ms_min`, `ms_max`) is the
-    median, least and largest of 7 CUDA-event windows queued behind a spin
-    on the card, warmed up: the card's time alone. `back_to_back_ms` is the
-    median of 7 windows of calls as the host issues them, which for a
-    kernel shorter than its wrapper's host cost (K2) times the host's
-    launch rate. K2's bound counts the work this input needs: every
+    path above and K1's grouped and training-budget timings (with their
+    plain versions' times), as one JSON line; then the result line. `ms`
+    (with `ms_min`, `ms_max`) is the median, least and largest of 7
+    CUDA-event windows queued behind a spin on the card, warmed up: the
+    card's time alone. `back_to_back_ms` is the median of 7 windows of
+    calls as the host issues them, which for a kernel shorter than its
+    wrapper's host cost (K2) times the host's launch rate. K2's bound counts the work this input needs: every
     selected segment tested once per row, and the exact evaluation only on
     the segments that count for some query of the row (the bound for every
     segment evaluated for every query is printed beside it).
@@ -63,6 +80,7 @@ The script imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -75,14 +93,31 @@ N_AGENTS, BATCH, WARMUP_STEPS, TIMED_STEPS = 15, 1024, 8, 16
 # outside the tensor cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# The two training configurations, as phases 8 and 9 run them and
+# The training configurations, as phases 8, 9, 11 and 12 run them and
 # `scripts/profile_torch_training.py` profiles them. The informed one is the
-# paper's reward sweep (`sigmarl_tpu/eval/papers.py:278-285`) with
-# observation noise off, which the port does not have yet.
+# paper's reward sweep (`sigmarl_tpu/eval/papers.py:278-285`), observation
+# noise on as `Parameters` has it; the XP-MARL one the ICRA'25 priority
+# comparison (`papers.py:105-111`), learned priority (phase 11 also runs
+# "random"); opponent modeling the same setting with its pad instead.
 INFORMED_TRAINING = dict(
     scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=32, dt=0.1, max_steps=128,
-    num_epochs=30, minibatch_size=512, is_use_mtv_distance=False, is_obs_noise=False,
+    num_epochs=30, minibatch_size=512, is_use_mtv_distance=False,
     rew_method="cbf", h_nom=0.2, is_using_cbf_training=True, is_solve_qp=False,
+)
+XPMARL_TRAINING = dict(
+    scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=32, dt=0.1, max_steps=128,
+    num_epochs=30, minibatch_size=512, is_use_mtv_distance=False,
+    is_using_prioritized_marl=True, prioritization_method="marl",
+)
+OPPONENT_TRAINING = {**XPMARL_TRAINING, "is_using_prioritized_marl": False,
+                     "is_using_opponent_modeling": True}
+# Learned priority with a CBF-filtered rollout at the main path's width, on
+# the `Parameters` defaults (MTV distance and observation noise on).
+WIDE_XPMARL_TRAINING = dict(
+    scenario_type="cpm_entire", n_agents=N_AGENTS, num_vmas_envs=BATCH, dt=0.1, max_steps=16,
+    num_epochs=1, minibatch_size=4096, is_using_prioritized_marl=True,
+    prioritization_method="marl", is_communication_noise=True, is_using_cbf_training=True,
+    is_solve_qp=True, is_apply_cbf_action=True, is_using_centralized_cbf=True,
 )
 FILTERED_TRAINING = dict(
     scenario_type="cpm_entire", n_agents=N_AGENTS, num_vmas_envs=BATCH, dt=0.1, max_steps=16,
@@ -406,8 +441,9 @@ def small_input_check(dev) -> None:
 
 
 def k1_timing(qp_args, qp_static, n_iters: int, soft_iters: int) -> dict:
-    """K1 queued behind a spin at one budget, with its bound and footprint."""
-    from sigmarl_tpu_torch.ops.qp import newton_solve, solve_occupancy
+    """K1 queued behind a spin at one budget, with its bound, footprint and
+    its plain version's time on the same input."""
+    from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference, solve_occupancy
 
     singles, pairs, u0 = qp_args[:3]
     B, d = u0.shape
@@ -417,17 +453,19 @@ def k1_timing(qp_args, qp_static, n_iters: int, soft_iters: int) -> dict:
     bound, by = bound_ms(B * qp_flops(N, Ks, Kp, P, n_iters, soft_iters), nbytes)
     win = cuda_ms_windows(lambda: newton_solve(*qp_args, *qp_static, n_iters,
                                                soft_iters=soft_iters), reps=10, queued=True)
+    plain = cuda_ms(lambda: newton_solve_reference(*qp_args, *qp_static, n_iters,
+                                                   soft_iters=soft_iters), reps=1)
     occ = solve_occupancy(N, Ks, Kp, P, B)
     return dict(N=N, B=B, Kp=Kp, budget=f"{soft_iters}+{n_iters}", **win, bound_ms=bound,
-                bound_by=by, smem_bytes=occ["smem_bytes"], blocks_per_sm=occ["blocks_per_sm"],
-                waves=occ["waves"])
+                bound_by=by, plain_ms=plain, smem_bytes=occ["smem_bytes"],
+                blocks_per_sm=occ["blocks_per_sm"], waves=occ["waves"])
 
 
 def print_k1_timing(what: str, r: dict, smi: str) -> None:
     print(f"K1 {what} (N={r['N']}, B={r['B']}, Kp={r['Kp']}, {r['budget']}): {r['ms']:.4f} ms "
           f"queued ({r['ms_min']:.4f} to {r['ms_max']:.4f}), bound {r['bound_ms']:.4f} ms by "
-          f"{r['bound_by']}; {r['smem_bytes']} B of shared memory, {r['blocks_per_sm']} blocks "
-          f"per SM, {r['waves']:.2f} waves; on {smi}")
+          f"{r['bound_by']}, plain {r['plain_ms']:.3f} ms; {r['smem_bytes']} B of shared memory, "
+          f"{r['blocks_per_sm']} blocks per SM, {r['waves']:.2f} waves; on {smi}")
 
 
 def grouped_phase(env, policy, gen, smi) -> dict:
@@ -494,9 +532,8 @@ def informed_training_phase(dev, smi, workdir) -> list:
     """CBF-informed training as the paper's reward sweep runs it
     (`sigmarl_tpu/eval/papers.py:278-285`: cpm_mixed, N=4, B=32, T=128, 30
     epochs of minibatch 512, the "cbf" reward with h_nom 0.2 from the
-    margins-only filter), except that observation noise is off: the port
-    does not have it yet, so the times are not the paper's exact setting.
-    2 iterations of `MAPPOCAVs.train`. K2 launches
+    margins-only filter, observation noise on the observations and on the
+    filter's nominal input). 2 iterations of `MAPPOCAVs.train`. K2 launches
     once per rollout step (128 per iteration) and K1 never; losses are
     finite, the weights move, and the checkpoint reloads equal."""
     import numpy as np
@@ -525,8 +562,7 @@ def informed_training_phase(dev, smi, workdir) -> list:
     for i, (m, k1, k2) in enumerate(seen):
         per_iter.append({"qp_newton": k1 - k1_prev, "boundary_stencil": k2 - k2_prev})
         k1_prev, k2_prev = k1, k2
-        print_iteration("CBF-informed training (observation noise off)", i, m,
-                        p.frames_per_batch, smi)
+        print_iteration("CBF-informed training", i, m, p.frames_per_batch, smi)
         check(_finite_losses(m), f"non-finite loss or reward in CBF-informed iteration {i + 1}")
     print(f"CBF-informed training: launches per iteration {per_iter}")
     for n in per_iter:
@@ -624,8 +660,7 @@ def ppo_update_check(dev) -> None:
     res = {}
     for d, tr in trs.items():
         params = tr.parameter_list()
-        total, _ = tr.loss(tr.policy_net, tr.critic_net, {k: v.to(d) for k, v in mb.items()},
-                           noise.to(d))
+        total, _ = tr.loss(tr.networks(), {k: v.to(d) for k, v in mb.items()}, noise.to(d))
         grads = torch.autograd.grad(total, params)
         before = [t.detach().clone() for t in params]
         tr.optimizer.step(params, grads, tr.optimizer.init(params))
@@ -643,6 +678,197 @@ def ppo_update_check(dev) -> None:
     check(loss_gap < 1e-5, f"PPO loss differs by a relative {loss_gap}")
     check(g_err <= 1e-5, f"PPO gradients differ by {g_err}")
     check(p_err <= 1e-6, f"updated parameters differ by {p_err}")
+
+
+def rollout_policy_calls(net):
+    """Counts the calls of `net` made without autograd, which are the
+    rollout's (the update's loss runs with it). Returns (counter, hook
+    handle)."""
+    import torch
+
+    calls = [0]
+
+    def hook(module, inputs, output):
+        if not torch.is_grad_enabled():
+            calls[0] += 1
+
+    return calls, net.register_forward_hook(hook)
+
+
+def recording_ranks():
+    """Wraps the trainer's `priority_rank` so that each call records, on the
+    card, whether every env's rank is a permutation of 0..N-1. Returns (the
+    list of those flags, a function that removes the wrapper)."""
+    import importlib
+
+    import torch
+
+    # By path: the package's `rl.mappo_cavs` attribute is the function.
+    trainer_module = importlib.import_module("sigmarl_tpu_torch.rl.mappo_cavs")
+    plain = trainer_module.priority_rank
+    flags = []
+
+    def recording(*args, **kwargs):
+        out = plain(*args, **kwargs)
+        n = out.rank.shape[-1]
+        flags.append((out.rank.sort(dim=-1).values
+                      == torch.arange(n, device=out.rank.device)).all())
+        return out
+
+    trainer_module.priority_rank = recording
+    return flags, lambda: setattr(trainer_module, "priority_rank", plain)
+
+
+def one_iteration(p, smi, what: str):
+    """One `train_iteration` of a fresh trainer with the launch counts set
+    to 0 just before it; returns (trainer, state, metrics, launches, the
+    rollout's policy calls, the per-call rank flags)."""
+    import torch
+
+    from sigmarl_tpu_torch import MAPPOCAVs
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.ops.qp import newton_solve
+
+    tr = MAPPOCAVs(p)
+    state = tr.initial_state()
+    before = [t.detach().clone() for t in tr.parameter_list()]
+    calls, handle = rollout_policy_calls(tr.policy_net)
+    flags, unwrap = recording_ranks()
+    try:
+        newton_solve.launches = 0
+        pseudo_distance_stencil.launches = 0
+        torch.cuda.synchronize()
+        state, m = tr.train_iteration(state)
+        torch.cuda.synchronize()
+        launches = {"qp_newton": newton_solve.launches,
+                    "boundary_stencil": pseudo_distance_stencil.launches}
+    finally:
+        handle.remove()
+        unwrap()
+    print_iteration(what, 0, m, p.frames_per_batch, smi)
+    moved = all(not torch.equal(a, b) for a, b in zip(before, tr.parameter_list()))
+    check(moved, f"a parameter tensor did not move in the {what} iteration")
+    check(_finite_losses(m) and bool(torch.isfinite(state.obs).all()),
+          f"non-finite obs, reward or loss in the {what} iteration")
+    if tr.prio_policy_net is not None:
+        check(math.isfinite(float(m["loss_priority"])), f"non-finite priority loss ({what})")
+    ranks_ok = bool(torch.stack(flags).all()) if flags else True
+    check(ranks_ok, f"a priority rank is not a permutation ({what})")
+    return tr, state, m, launches, calls[0], len(flags)
+
+
+def xpmarl_training_phase(dev, smi, workdir) -> dict:
+    """XP-MARL as the ICRA'25 priority comparison runs it
+    (`sigmarl_tpu/eval/papers.py:105-111`: cpm_mixed, N=4, B=32, T=128, 30
+    epochs of minibatch 512, observation noise on): one iteration with
+    learned and one with random priority, then one with opponent modeling
+    in the same setting. Neither path runs a kernel. Returns each path's
+    launches."""
+    from sigmarl_tpu_torch import Parameters
+
+    out = {}
+    for name, kw in (
+        ("learned priority", XPMARL_TRAINING),
+        ("random priority", {**XPMARL_TRAINING, "prioritization_method": "random"}),
+        ("opponent modeling", OPPONENT_TRAINING),
+    ):
+        p = Parameters(**kw, n_iters=1, device=dev,
+                       where_to_save=os.path.join(workdir, "xpmarl") + "/")
+        tr, _, m, launches, calls, n_ranks = one_iteration(p, smi, f"XP-MARL, {name},")
+        per_step = p.n_agents if tr.use_prio else 2
+        print(f"XP-MARL, {name}: launches {launches}, {calls} rollout policy calls in "
+              f"{p.max_steps} steps, {n_ranks} ranks checked"
+              + (f", priority loss {float(m['loss_priority']):.5f}" if tr.prio_policy_net else ""))
+        check(calls == per_step * p.max_steps,
+              f"{calls} policy calls in {p.max_steps} {name} steps, want {per_step} per step")
+        check(n_ranks == (p.max_steps if tr.use_prio else 0), f"{n_ranks} ranks in {name}")
+        check(launches == {"qp_newton": 0, "boundary_stencil": 0},
+              f"the {name} iteration launched {launches}, want none")
+        out[name] = launches
+    return out
+
+
+def wide_xpmarl_phase(dev, smi, workdir) -> dict:
+    """Learned-priority XP-MARL with a CBF-filtered rollout at the main
+    path's width on the `Parameters` defaults (MTV distance and observation
+    noise on): cpm_entire, N=15, B=1024, T=16, communication noise, the
+    centralized filter at its 2+15 budget, one epoch of minibatch 4096.
+    One iteration: K1 and K2 launched once per rollout step, 15 policy
+    calls per step, finite obs, rewards and losses."""
+    from sigmarl_tpu_torch import Parameters
+
+    p = Parameters(**WIDE_XPMARL_TRAINING, n_iters=1, device=dev,
+                   where_to_save=os.path.join(workdir, "wide") + "/")
+    check(p.is_use_mtv_distance and p.is_obs_noise, "the wide run is not on the defaults")
+    tr, _, m, launches, calls, _ = one_iteration(p, smi, "wide XP-MARL, CBF-filtered,")
+    solved = float(m["cbf_solved_share"])
+    print(f"wide XP-MARL, CBF-filtered: launches {launches}, solved share {solved:.6f}, "
+          f"{calls} rollout policy calls in {p.max_steps} steps, priority loss "
+          f"{float(m['loss_priority']):.5f}")
+    check(math.isfinite(solved), "no solved share in the wide XP-MARL iteration")
+    check(calls == p.n_agents * p.max_steps, f"{calls} policy calls, want {p.n_agents} per step")
+    for k, n in launches.items():
+        check(n == p.max_steps, f"{k} launched {n} times in {p.max_steps} wide XP-MARL steps")
+    return launches
+
+
+def xpmarl_small_check(dev) -> None:
+    """Card against CPU at a small size from the same weights and draws:
+    one XP-MARL propagation step (N=4, B=8, communication noise on; actions
+    to atol 1e-5), and one env step with the MTV distance, observation
+    noise and a history of 2 from the same state, actions, reset draws and
+    noise (rewards and positions to atol 2e-5, observations and the history
+    to 1e-4, done flags equal)."""
+    import torch
+
+    from sigmarl_tpu_torch import Parameters, PolicyNet, make_env
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.env.structs import state_to
+    from sigmarl_tpu_torch.rl.priority import prioritized_action_propagation
+
+    B, N, D, K = 8, 4, 30, 2
+    g = torch.Generator().manual_seed(11)
+    obs = torch.nn.functional.pad(torch.randn((B, N, D), generator=g), (0, 2 * K))
+    rank = torch.stack([torch.randperm(N, generator=g) for _ in range(B)])
+    nearing = torch.stack([torch.stack([torch.randperm(N - 1, generator=g)[:K] for _ in range(N)])
+                           for _ in range(B)])
+    noise, comm = torch.randn((N, B, 2), generator=g), torch.randn((N, B, 2 * K), generator=g)
+    lim = torch.tensor([1.0, 0.54])
+    pol_c = PolicyNet(D + 2 * K, device="cpu", seed=3)
+    pol_g = PolicyNet(D + 2 * K, device=dev, seed=3)
+    outs = [prioritized_action_propagation(
+        pol, *(x.to(d) for x in (obs, rank, nearing, -lim, lim)), action_noise=noise.to(d),
+        communication_noise_level=0.1, communication_noise=comm.to(d))
+        for pol, d in ((pol_c, "cpu"), (pol_g, dev))]
+    act_err = float((outs[1].actions.cpu() - outs[0].actions).abs().max())
+
+    p = Parameters(scenario_type="cpm_entire", n_agents=N_AGENTS, num_vmas_envs=B, dt=0.1,
+                   max_steps=1_000_000, n_observed_steps=2)
+    check(p.is_use_mtv_distance and p.is_obs_noise, "the env check is not on the defaults")
+    env_c, env_g = make_env(p, device="cpu"), make_env(p, device=dev)
+    state, _ = env_c.reset(generator=g)
+    for _ in range(3):
+        act = (2 * torch.rand((B, N_AGENTS, 2), generator=g) - 1) * env_c.action_limits
+        state, *_ = env_c.step(state, act, generator=g)
+    draws = ResetDraws.sample(env_c.cfg, g, "cpu")
+    draws_g = ResetDraws(None, draws.path_u.to(dev), draws.point_u.to(dev), draws.speed_u.to(dev))
+    u = torch.rand((B, N_AGENTS, env_c.obs_dim), generator=g)
+    sc, obs_c, rew_c, done_c, _ = env_c.step(state, act, reset_draws=draws, obs_noise=u)
+    sg, obs_g, rew_g, done_g, _ = env_g.step(state_to(state, torch.device(dev)), act.to(dev),
+                                             reset_draws=draws_g, obs_noise=u.to(dev))
+    errs = {k: float((a.cpu() - b).abs().max()) for k, a, b in (
+        ("reward", rew_g, rew_c), ("pos", sg.pos, sc.pos), ("obs", obs_g, obs_c),
+        ("history", sg.obs_history, sc.obs_history))}
+    print(f"XP-MARL propagation (N={N}, B={B}), card vs CPU: actions {act_err:.3e} (atol 1e-5); "
+          f"env step with MTV, noise and history 2 (B={B}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (atol 2e-5, 2e-5, 1e-4, 1e-4)")
+    check(act_err <= 1e-5, f"XP-MARL propagation differs by {act_err}")
+    check(errs["reward"] <= 2e-5 and errs["pos"] <= 2e-5 and errs["obs"] <= 1e-4
+          and errs["history"] <= 1e-4, "card and CPU steps with MTV, noise and history differ")
+    check(torch.equal(done_g.cpu(), done_c), "done flags differ")
+    check(obs_g.shape == (B, N_AGENTS, env_g.obs_dim) and sg.obs_history.shape[0] == 2,
+          "wrong observation or history shape")
 
 
 def kernel_report(qp_args, qp_static, pd_args, launches, errs, paths) -> list:
@@ -771,12 +997,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(HERE, "outputs")) as wd:
         informed = informed_training_phase(dev, smi, wd)
         filtered = filtered_training_phase(dev, smi, wd)
-    ppo_update_check(dev)
+        ppo_update_check(dev)
+        xpmarl = xpmarl_training_phase(dev, smi, wd)
+        wide = wide_xpmarl_phase(dev, smi, wd)
+    xpmarl_small_check(dev)
 
     paths = {k: {"main": launches[k], "grouped": grouped["launches"][k],
                  "cbf_informed_training_per_iteration": [n[k] for n in informed],
                  "cbf_filtered_training_centralized": filtered["centralized"][k],
-                 "cbf_filtered_training_decentralized": filtered["decentralized"][k]}
+                 "cbf_filtered_training_decentralized": filtered["decentralized"][k],
+                 "xpmarl_learned_priority": xpmarl["learned priority"][k],
+                 "xpmarl_random_priority": xpmarl["random priority"][k],
+                 "opponent_modeling": xpmarl["opponent modeling"][k],
+                 "xpmarl_cbf_filtered_wide": wide[k]}
              for k in launches}
     paths["k1"] = [dict(input="grouped", **grouped["k1"]),
                    dict(input="filtered training", **filtered["k1"])]

@@ -4,14 +4,19 @@ on the card.
 
     python3 scripts/profile_torch_training.py
 
-Configurations, `chip_smoke.py`'s two training constants:
+Configurations, `chip_smoke.py`'s training constants:
 
 - informed (`INFORMED_TRAINING`): CBF-informed training at the paper's
   reward-sweep setting (cpm_mixed, N=4, B=32, T=128, 30 epochs of minibatch
-  512, "cbf" reward from the margins-only filter), observation noise off;
+  512, "cbf" reward from the margins-only filter, observation noise on);
 - filtered (`FILTERED_TRAINING`): CBF-filtered training at the main path's
   width (cpm_entire, N=15, B=1024, T=16, centralized filter at its 2+15
-  budget, one epoch of minibatch 4096).
+  budget, one epoch of minibatch 4096);
+- xpmarl (`XPMARL_TRAINING`): the ICRA'25 learned-priority setting
+  (cpm_mixed, N=4, B=32, T=128, 30 epochs of minibatch 512);
+- opponent (`OPPONENT_TRAINING`): opponent modeling in the same setting;
+- wide (`WIDE_XPMARL_TRAINING`): learned priority with a CBF-filtered
+  rollout at N=15, B=1024, T=16 on the `Parameters` defaults.
 
 For each: one iteration to warm up, one timed iteration (host clock, the
 card synchronised at the end of the rollout, GAE and update phases), then
@@ -33,7 +38,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 
-CONFIGS = {"informed": cs.INFORMED_TRAINING, "filtered": cs.FILTERED_TRAINING}
+CONFIGS = {
+    "informed": cs.INFORMED_TRAINING, "filtered": cs.FILTERED_TRAINING,
+    "xpmarl": cs.XPMARL_TRAINING, "opponent": cs.OPPONENT_TRAINING,
+    "wide": cs.WIDE_XPMARL_TRAINING,
+}
 
 
 def profile_config(name: str, smi: str, workdir: str) -> dict:

@@ -2,8 +2,9 @@
 
 A second package beside the JAX one: the road-traffic simulator, the
 CBF-QP safety filter (centralized, decentralized, grouped or margins-only)
-and MAPPO training (`rl/`, `python -m sigmarl_tpu_torch.main_training`) on
-tensors, with the two hot kernels written in CUDA for Hopper (`ops/qp.py`,
+and MAPPO training (`rl/`, `python -m sigmarl_tpu_torch.main_training`;
+plain, CBF-filtered or CBF-informed rollouts, XP-MARL priorities, opponent
+modeling, the learned-CBF module) on tensors, with the two hot kernels written in CUDA for Hopper (`ops/qp.py`,
 `ops/boundary.py`, sources under `csrc/`). Entry points run
 on `cuda` unless the caller passes `device="cpu"`, where every kernel runs
 its plain PyTorch version. The package imports nothing of JAX.
@@ -15,13 +16,18 @@ from sigmarl_tpu_torch.config import Parameters  # noqa: F401
 from sigmarl_tpu_torch.constants import AGENTS, SCENARIOS, THRESHOLD  # noqa: F401
 from sigmarl_tpu_torch.env.env import RoadTrafficEnv, make_env  # noqa: F401
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, zero_state  # noqa: F401
+from sigmarl_tpu_torch.rl.cbf_module import CBFModule  # noqa: F401
 from sigmarl_tpu_torch.rl.mappo_cavs import MAPPOCAVs, mappo_cavs  # noqa: F401
 from sigmarl_tpu_torch.rl.networks import (  # noqa: F401
     CentralizedCritic,
     PolicyNet,
     critic_from_jax_params,
     policy_from_jax_params,
+    score_critic,
+    score_policy,
     tanh_normal_sample,
 )
+from sigmarl_tpu_torch.rl.opponent import opponent_modeling_policy  # noqa: F401
+from sigmarl_tpu_torch.rl.priority import prioritized_action_propagation, priority_rank  # noqa: F401
 from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter, CBFStepInfo  # noqa: F401
 from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step, cbf_margin_step  # noqa: F401

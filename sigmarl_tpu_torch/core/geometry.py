@@ -153,6 +153,58 @@ def c2c_distances(pos: Tensor, set_diagonal_to: float | None = None) -> Tensor:
     return d
 
 
+def mtv_distances(vertices: Tensor, set_diagonal_to: float | None = None) -> Tensor:
+    """Pairwise SAT/MTV rectangle distances, vectorized over the pairs.
+
+    vertices [..., N, >=4, 2] (the first 4 are used). Returns [..., N, N]:
+    positive is the separation (Euclidean over the per-axis gaps of one
+    rectangle's vertices on the other's two normal axes, least over the 8
+    vertices of the pair), negative the penetration depth (the smaller
+    projection overlap) wherever a vertex of either lies inside the other.
+    """
+    v = vertices[..., :4, :]  # [..., N, 4, 2]
+    axes = torch.diff(vertices[..., 0:3, :], dim=-2)  # [..., N, 2, 2]
+    axes = axes / torch.clamp(_norm(axes), min=1e-12)[..., None]
+
+    # proj[..., i, j, p, a]: vertex p of rect i projected on axis a of rect j.
+    proj = (v[..., :, None, :, None, :] * axes[..., None, :, None, :, :]).sum(-1)
+    # Rect j's projection extents on its own axes.
+    proj_self = (v[..., :, :, None, :] * axes[..., :, None, :, :]).sum(-1)  # [..., N, 4, 2]
+    max_j = proj_self.max(dim=-2).values[..., None, :, :]  # [..., 1, N, 2]
+    min_j = proj_self.min(dim=-2).values[..., None, :, :]
+    min_jb, max_jb = min_j[..., None, :], max_j[..., None, :]  # [..., 1, N, 1, 2]
+
+    below, above = proj <= min_jb, proj >= max_jb
+    gap = (proj - min_jb) * below.to(proj.dtype) + (max_jb - proj) * above.to(proj.dtype)
+    pos_dist = _norm(gap)  # [..., N, N, 4]
+
+    # Projection extents of rect i on rect j's axes, and their overlap.
+    overlap = (torch.minimum(max_j, proj.max(dim=-2).values)
+               - torch.maximum(min_j, proj.min(dim=-2).values))  # [..., N, N, 2]
+    inside = ((proj > min_jb) & (proj < max_jb)).all(-1)  # [..., N, N, 4]
+    neg_mag = -overlap.min(dim=-1).values[..., None] * inside.to(proj.dtype)
+
+    # Pair (i, j): the vertices of i against rect j and those of j against
+    # rect i.
+    dist = torch.cat([pos_dist, pos_dist.transpose(-3, -2)], dim=-1).min(dim=-1).values
+    any_inside = (neg_mag.abs() > 0).any(-1)
+    any_inside = any_inside | any_inside.transpose(-2, -1)
+    overlap_min = overlap.min(dim=-1).values
+    pen = -torch.minimum(overlap_min, overlap_min.transpose(-2, -1))
+    dist = torch.where(any_inside, pen, dist)
+    if set_diagonal_to is not None:
+        eye = torch.eye(v.shape[-3], dtype=torch.bool, device=v.device)
+        dist = torch.where(eye, torch.full_like(dist, set_diagonal_to), dist)
+    return dist
+
+
+def nearest_indices(d: Tensor, k: int) -> Tensor:
+    """Indices of the k smallest entries of `d` along its last axis, nearest
+    first, the lower index first among equal distances (the order of JAX's
+    `lax.top_k(-d, k)`; `torch.topk` promises none on ties)."""
+    return torch.argsort(d, dim=-1, stable=True)[..., :k]
+
+
 def interx(L1: Tensor, L2: Tensor) -> Tensor:
     """Whether two (batched) polylines intersect (signed-distance test).
     L1 [..., P1, 2]; L2 [..., P2, 2]; returns [...] bool."""

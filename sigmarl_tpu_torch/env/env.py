@@ -5,7 +5,8 @@ struct-of-tensors state `[B, N, ...]`, with auto-reset folded in:
 
 1. dynamics (`command_step`) from (speed, steering) targets
 2. `update_geometry`: vertices, distances, collisions
-3. rewards (use the previous step's recorded pose and short-term window)
+3. rewards (use the previous step's recorded pose and short-term window;
+   under `debug_numerics` a non-finite reward raises)
 4. state-buffer push, short-term path refresh
 5. done logic, masked auto-reset of the done envs
 6. observation of the post-reset state
@@ -34,6 +35,7 @@ from sigmarl_tpu_torch.env.updates import (
     update_short_term_paths,
 )
 from sigmarl_tpu_torch.maps.manager import load_map
+from sigmarl_tpu_torch.utils.debug import assert_finite, enable_debug_numerics
 
 Tensor = torch.Tensor
 
@@ -69,14 +71,20 @@ class RoadTrafficEnv:
         return torch.tensor([self.cfg.max_speed, self.cfg.max_steering], device=self.device)
 
     def reset(
-        self, generator: torch.Generator | None = None, draws: ResetDraws | None = None
+        self,
+        generator: torch.Generator | None = None,
+        draws: ResetDraws | None = None,
+        obs_noise: Tensor | None = None,
     ) -> Tuple[WorldState, Tensor]:
         """Fresh episode state and initial observation. Random numbers come
-        from `draws` or else from `generator`."""
+        from `draws` and `obs_noise` (the observation noise's uniforms,
+        [B, N, obs_dim]) or else from `generator`."""
         if draws is None:
             draws = ResetDraws.sample(self.cfg, generator, self.device)
         state = initial_state(self.cfg, self.tables, draws, self.device)
-        obs, state = observe_with_history(self.cfg, self.tables, state)
+        obs, state = observe_with_history(
+            self.cfg, self.tables, state, full_reset=True, noise=obs_noise, generator=generator
+        )
         return state, obs
 
     def step(
@@ -85,12 +93,14 @@ class RoadTrafficEnv:
         actions: Tensor,
         generator: torch.Generator | None = None,
         reset_draws: ResetDraws | None = None,
+        obs_noise: Tensor | None = None,
     ) -> Tuple[WorldState, Tensor, Tensor, Tensor, Dict[str, Tensor]]:
         """Advance one control period. actions [B, N, 2] (speed target,
         steering target). The reset's random numbers come from
         `reset_draws` or else from `generator`, and are drawn only when an
-        env resets. Returns (state', obs [B,N,obs_dim], reward [B,N],
-        done [B], info)."""
+        env resets; the observation noise's uniforms [B, N, obs_dim] from
+        `obs_noise` or else from `generator`. Returns (state', obs
+        [B,N,obs_dim], reward [B,N], done [B], info)."""
         cfg, tables = self.cfg, self.tables
         prev_pos = latest_state_record(state)[..., 0:2]
         prev_short_term = state.short_term
@@ -112,6 +122,8 @@ class RoadTrafficEnv:
         reward, rew_info = compute_rewards(
             cfg, state, prev_pos, prev_short_term, self.weighting_ref
         )
+        if cfg.debug_numerics:
+            assert_finite(reward, "reward")
         # 4. record + refresh windows
         state = push_state_buffer(state)
         state = update_short_term_paths(cfg, tables, state)
@@ -139,8 +151,11 @@ class RoadTrafficEnv:
             if reset_draws is None:
                 reset_draws = ResetDraws.sample(cfg, generator, self.device)
             state = apply_reset(cfg, tables, state, reset_mask, reset_draws)
-        # 6. observation of the (possibly reset) state
-        obs, state = observe_with_history(cfg, tables, state)
+        # 6. observation of the (possibly reset) state; the history slots of
+        # the agents just reset are refilled with the new episode's features.
+        obs, state = observe_with_history(
+            cfg, tables, state, reset_mask=reset_mask, noise=obs_noise, generator=generator
+        )
         return state, obs, reward, done, info
 
     def reset_predefined(self, *args, **kwargs):
@@ -184,11 +199,6 @@ def _check_ported(p: Parameters) -> None:
         "reset_predefined (predefined_ref_path_idx / init_state)": (
             p.predefined_ref_path_idx is not None or p.init_state is not None
         ),
-        "observation history > 1": max(p.n_stored_steps, p.n_observed_steps) > 1,
-        "the MTV distance": p.is_use_mtv_distance,
-        "observation noise": p.is_obs_noise,
-        "opponent modeling": p.is_using_opponent_modeling,
-        "prioritized MARL": p.is_using_prioritized_marl,
         "experiment_type 'lab' (reset_from_poses)": p.experiment_type != "simulation",
         f"the {p.rew_method!r} reward method": p.rew_method not in REWARD_METHODS,
     }
@@ -202,6 +212,8 @@ def make_env(parameters: Parameters, device: str | torch.device | None = None) -
     on `device`, by default `parameters.device` ("cuda")."""
     _check_ported(parameters)
     dev = resolve_device(device if device is not None else parameters.device)
+    if parameters.debug_numerics:
+        enable_debug_numerics()
     cfg = EnvConfig.from_parameters(parameters)
     map_data = load_map(parameters.scenario_type)
     if parameters.scenario_type == "cpm_mixed":

@@ -2,7 +2,9 @@
 
 Neighbors are selected first (top-k over the distance matrix) and only the
 k selected neighbors' features are gathered (index gathers) and
-transformed into the ego frame. History depth 1 only.
+transformed into the ego frame. The observation is the newest
+`n_observed_steps` feature blocks of the history, then the
+opponent-modeling pad and the sensor noise.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import torch
 
 from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.env.map_tables import MapTables
-from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState
+from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state
 
 Tensor = torch.Tensor
 
@@ -41,8 +43,8 @@ def observe_core(cfg: EnvConfig, tables: MapTables, state: WorldState) -> Tensor
     # --- neighbor selection (before any pairwise feature work)
     k = cfg.n_observed_agents
     if cfg.is_partial_observation:
-        neg_d, nearing_idx = torch.topk(-state.d_agents, k, dim=-1)  # [B, N, k]
-        nearing_dist = -neg_d
+        nearing_idx = G.nearest_indices(state.d_agents, k)  # [B, N, k]
+        nearing_dist = torch.gather(state.d_agents, -1, nearing_idx)
         if cfg.is_apply_mask:
             masked = nearing_dist >= cfg.distance_mask_agents
             if cfg.has_lanelet_neighbors:
@@ -165,9 +167,72 @@ def observe_core(cfg: EnvConfig, tables: MapTables, state: WorldState) -> Tensor
     return torch.cat([obs_self, obs_others], dim=-1)
 
 
-def observe_with_history(cfg: EnvConfig, tables: MapTables, state: WorldState):
-    """Observation at history depth 1 (deeper histories are not ported).
-    Returns (obs [B, N, obs_dim], state)."""
-    if cfg.n_observed_steps > 1 or cfg.n_stored_steps > 1:
-        raise NotImplementedError("observation history deeper than 1 is not ported")
-    return observe_core(cfg, tables, state), state
+def _finalize(
+    cfg: EnvConfig, obs: Tensor, noise: Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> Tensor:
+    """The opponent-modeling zero pad of k * 2 columns, then uniform [0,
+    level) sensor noise over the whole padded observation (the pad too):
+    `noise` is the [B, N, obs_dim] uniform draw, from `generator` when not
+    given."""
+    B, N = obs.shape[:2]
+    if cfg.is_using_opponent_modeling:
+        pad = torch.zeros((B, N, cfg.n_nearing_agents_observed * cfg.n_actions),
+                          dtype=obs.dtype, device=obs.device)
+        obs = torch.cat([obs, pad], dim=-1)
+    if cfg.is_obs_noise:
+        if noise is None:
+            noise = torch.rand(obs.shape, generator=generator, device=obs.device)
+        obs = obs + cfg.obs_noise_level * noise
+    return obs
+
+
+def observe(
+    cfg: EnvConfig, tables: MapTables, state: WorldState, noise: Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> Tensor:
+    """Single-shot observation at history depth 1. A deeper window needs
+    the history that `observe_with_history` threads through the state."""
+    if cfg.n_observed_steps > 1:
+        raise ValueError(
+            f"observe() cannot produce n_observed_steps={cfg.n_observed_steps} observations "
+            "without a threaded history; use observe_with_history()."
+        )
+    return _finalize(cfg, observe_core(cfg, tables, state), noise, generator)
+
+
+def observe_with_history(
+    cfg: EnvConfig,
+    tables: MapTables,
+    state: WorldState,
+    reset_mask: Tensor | None = None,
+    full_reset: bool = False,
+    noise: Tensor | None = None,
+    generator: torch.Generator | None = None,
+):
+    """Observation with feature history. `state.obs_history` [H, B, N, F]
+    holds the last H single-step feature blocks, newest first; the
+    observation concatenates the newest `n_observed_steps` of them. Each
+    call rolls the history by one slot; `full_reset` fills every slot with
+    the current features, and `reset_mask` [B, N] refills the slots of the
+    agents that were just reset, so no window mixes two episodes. Noise as
+    in `_finalize`. Returns (obs [B, N, obs_dim], state with the rolled
+    history)."""
+    core = observe_core(cfg, tables, state)  # [B, N, F]
+    H = cfg.n_stored_steps
+    if cfg.n_observed_steps > H:
+        raise ValueError(
+            f"n_observed_steps={cfg.n_observed_steps} exceeds n_stored_steps={H}"
+        )
+    if H <= 1:
+        return _finalize(cfg, core, noise, generator), state
+    if full_reset:
+        hist = core[None].expand(H, *core.shape)
+    else:
+        hist = torch.cat([core[None], state.obs_history[:-1]], dim=0)
+        if reset_mask is not None:
+            hist = torch.where(reset_mask[None, :, :, None], core[None], hist)
+    window = hist[: cfg.n_observed_steps]  # [n_obs, B, N, F], newest first
+    obs = window.permute(1, 2, 0, 3).reshape(*core.shape[:2], -1)
+    state = replace_state(state, obs_history=hist.contiguous())
+    return _finalize(cfg, obs, noise, generator), state

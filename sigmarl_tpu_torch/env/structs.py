@@ -329,8 +329,9 @@ class WorldState:
     coll_exit: Array  # [B, N] bool
     # Step bookkeeping
     step: Array  # [B] int32
-    # Observation feature history ([0, ...] at history depth 1).
-    obs_history: Array  # [0, B, N, obs_core_dim]
+    # Observation feature history, newest slot first ([0, ...] when
+    # n_stored_steps == 1: depth 1 carries no history).
+    obs_history: Array  # [n_stored_steps or 0, B, N, obs_core_dim]
     state_buffer: Array  # [n_stored, B, N, 8] circular ([x,y,rot,vx,vy,scn,path,pt])
     sb_pointer: Array  # [] int32
     # Challenging initial-state buffer (not ported: stays empty)
@@ -401,7 +402,8 @@ def zero_state(cfg: EnvConfig, device: torch.device | str) -> WorldState:
         challenge_buffer=f((cfg.challenge_buffer_size, N, 8)),
         cb_pointer=f((), i32),
         cb_valid=f((), i32),
-        obs_history=f((0, B, N, cfg.obs_core_dim)),
+        obs_history=f((cfg.n_stored_steps if cfg.n_stored_steps > 1 else 0,
+                       B, N, cfg.obs_core_dim)),
         nominal_action=f((B, N, 2)),
         applied_action=f((B, N, 2)),
         cbf_u_prev=f((B, N, 2)),

@@ -16,6 +16,15 @@ from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state
 Tensor = torch.Tensor
 
 
+def _agent_distances(cfg: EnvConfig, pos: Tensor, verts: Tensor) -> Tensor:
+    """Mutual agent distances [B, N, N] of the configured kind (centre to
+    centre, or the rectangles' MTV distance), the diagonal set to the
+    world's half diagonal."""
+    if cfg.distance_type == "c2c":
+        return G.c2c_distances(pos, set_diagonal_to=cfg.world_semidiag)
+    return G.mtv_distances(verts, set_diagonal_to=cfg.world_semidiag)
+
+
 def update_geometry(
     cfg: EnvConfig, tables: MapTables, state: WorldState, skip_collisions: bool = False
 ) -> WorldState:
@@ -23,11 +32,9 @@ def update_geometry(
     and collision flags from the current kinematic state.
 
     `skip_collisions` keeps the existing collision flags."""
-    if cfg.distance_type != "c2c":
-        raise NotImplementedError("the MTV distance is not ported")
     pos, rot = state.pos, state.rot
     verts = G.rectangle_vertices(pos, rot, cfg.agent_width, cfg.agent_length, True)
-    d_agents = G.c2c_distances(pos, set_diagonal_to=cfg.world_semidiag)
+    d_agents = _agent_distances(cfg, pos, verts)
 
     pid = state.path_id.long()
     lt = tables.long_term[pid]  # [B, N, P, 2]
@@ -62,9 +69,12 @@ def update_geometry(
         coll_agents, coll_lanelets = state.coll_agents, state.coll_lanelets
         coll_entry, coll_exit = state.coll_entry, state.coll_exit
     else:
-        pair_hit = G.interx(verts[:, :, None], verts[:, None, :])  # [B, N, N]
-        eye = torch.eye(cfg.n_agents, dtype=torch.bool, device=pos.device)
-        coll_agents = pair_hit & ~eye
+        if cfg.distance_type == "c2c":
+            pair_hit = G.interx(verts[:, :, None], verts[:, None, :])  # [B, N, N]
+            eye = torch.eye(cfg.n_agents, dtype=torch.bool, device=pos.device)
+            coll_agents = pair_hit & ~eye
+        else:
+            coll_agents = d_agents <= 0.0
         coll_lanelets = G.rect_polyline_hit(
             pos, rot, cfg.agent_width, cfg.agent_length, lb
         ) | G.rect_polyline_hit(pos, rot, cfg.agent_width, cfg.agent_length, rb)
@@ -104,7 +114,7 @@ def refresh_geometry_after_reset(
     pos, rot = state.pos, state.rot
     m = reset_mask
     verts = G.rectangle_vertices(pos, rot, cfg.agent_width, cfg.agent_length, True)
-    d_agents = G.c2c_distances(pos, set_diagonal_to=cfg.world_semidiag)
+    d_agents = _agent_distances(cfg, pos, verts)
     pid, pt = state.path_id.long(), state.point_id.long()
 
     def g(t):

@@ -4,7 +4,12 @@ One training iteration is a rollout of `max_steps` env transitions over
 all envs (a Python loop: plain `env.step`, or the CBF-filtered or the
 margins-only step when CBF training is on), GAE, and `num_epochs` epochs
 of minibatch PPO updates over a random permutation of the frames (or,
-with `is_prb`, over prioritized samples). Checkpointing keeps the
+with `is_prb`, over prioritized samples). The policy acts in one pass, or
+with XP-MARL (`is_using_prioritized_marl`) in priority turns with action
+propagation (`rl/priority.py`), or with opponent modeling
+(`is_using_opponent_modeling`, ignored under XP-MARL; `rl/opponent.py`)
+in two passes. Learned priority ("marl") adds a priority actor-critic
+whose Clip-PPO loss joins the policy's, under the same optimizer. Checkpointing keeps the
 reward-keyed retention policy of `rl/checkpoint.py`: a checkpoint is
 written only when the mean episode reward improves, lower-reward files
 are deleted, and the run configuration rides along as a JSON sidecar.
@@ -35,18 +40,28 @@ from sigmarl_tpu_torch.rl.networks import (
     PolicyNet,
     critic_from_jax_params,
     policy_from_jax_params,
+    score_critic,
+    score_policy,
     tanh_normal_mode,
     tanh_normal_sample,
     to_jax_params,
 )
+from sigmarl_tpu_torch.rl.opponent import opponent_modeling_policy
 from sigmarl_tpu_torch.rl.optim import AdamState, ClippedAdam
 from sigmarl_tpu_torch.rl.ppo import PPOConfig, gae, ppo_losses
+from sigmarl_tpu_torch.rl.priority import (
+    nearing_agent_indices,
+    prioritized_action_propagation,
+    priority_rank,
+)
 from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter
 from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step, cbf_margin_step
+from sigmarl_tpu_torch.utils.debug import assert_finite, enable_debug_numerics
 
 Tensor = torch.Tensor
 
 PRB_ALPHA = 0.7  # priority exponent of the prioritized replay buffer
+PRIORITY_SEED = 1000  # offset of the priority networks' weight seeds
 
 
 @dataclass
@@ -93,28 +108,55 @@ class TrainState:
     obs: Tensor  # [B, N, obs_dim]
     ep_reward_accum: Tensor  # [B, N] running episodic reward
     iteration: int
+    prio_policy: Optional[nn.Module] = None  # learned priority (XP-MARL "marl")
+    prio_critic: Optional[nn.Module] = None
+
+    @property
+    def networks(self) -> tuple:
+        """The networks the optimizer updates: policy, critic and, with
+        learned priority, the priority policy and critic."""
+        prio = () if self.prio_policy is None else (self.prio_policy, self.prio_critic)
+        return (self.policy, self.critic, *prio)
 
 
 class Transition(NamedTuple):
-    obs: Tensor  # [B, N, obs] observation the policy acted on
+    obs: Tensor  # [B, N, obs_policy] observation the policy acted on
     action: Tensor  # [B, N, 2]
     log_prob: Tensor  # [B, N]
     reward: Tensor  # [B, N]
     done: Tensor  # [B]
-    next_obs: Tensor  # [B, N, obs]
+    next_obs: Tensor  # [B, N, obs] raw next observation
     ep_reward_at_done: Tensor  # [B, N] episodic reward, read where done
+    # The learned-priority stream (None without it)
+    prio_obs: Optional[Tensor] = None  # [B, N, obs] raw observation
+    prio_scores: Optional[Tensor] = None  # [B, N]
+    prio_log_prob: Optional[Tensor] = None  # [B, N]
 
 
 @dataclass
 class IterationDraws:
     """Every random number of one training iteration.
 
-    action_noise: [T, B, N, 2] standard normals of the policy's samples.
+    action_noise: standard normals of the policy's samples: [T, B, N, 2];
+        under XP-MARL [T, N, B, 2], one block per priority turn; under
+        opponent modeling [T, 2, B, N, 2], the tentative and the final pass.
     reset_draws: T `ResetDraws`, one per env step (used where envs reset).
     permutations: [E, M] frame permutations, one per epoch (None with PRB).
     entropy_noise: [E, n_mb, mb, N, 2] standard normals of the entropy
         estimate, one block per minibatch.
     prb_indices: [E, n_mb, mb] sampled frames of each minibatch (PRB only).
+    obs_noise: [T, B, N, obs_dim] uniforms of each env step's observation
+        noise (with `is_obs_noise`).
+    cbf_noise: [T, B, N, 2] uniforms of the filter's noise on its nominal
+        input (a filtered or margins-only rollout with `is_obs_noise`).
+    priority_noise: [T, B, N, 1] standard normals of the priority scores
+        (learned priority).
+    priority_perms: [T, B, N] the per-env permutations (random priority).
+    communication_noise: [T, N, B, 2k] standard normals of the
+        communication noise per priority turn.
+    priority_entropy_noise: [E, n_mb, mb, N, 1] standard normals of the
+        priority loss's entropy estimate.
+    A field left None is drawn from the trainer's generator.
     """
 
     action_noise: Tensor
@@ -122,6 +164,19 @@ class IterationDraws:
     permutations: Optional[Tensor]
     entropy_noise: Tensor
     prb_indices: Optional[Tensor] = None
+    obs_noise: Optional[Tensor] = None
+    cbf_noise: Optional[Tensor] = None
+    priority_noise: Optional[Tensor] = None
+    priority_perms: Optional[Tensor] = None
+    communication_noise: Optional[Tensor] = None
+    priority_entropy_noise: Optional[Tensor] = None
+
+
+def _draw(draws: IterationDraws | None, name: str, index):
+    """`draws.<name>[index]`, or None where the draws or the field are
+    missing (the consumer then draws from its generator)."""
+    x = None if draws is None else getattr(draws, name)
+    return None if x is None else x[index]
 
 
 def compute_td_error(reward, values, next_values, done, gamma: float = 0.9) -> Tensor:
@@ -134,21 +189,6 @@ def compute_td_error(reward, values, next_values, done, gamma: float = 0.9) -> T
     return torch.clamp((td - td.min()) / rng * 10.0, 1e-3, 10.0)
 
 
-def _check_ported(p: Parameters) -> None:
-    unported = {
-        "XP-MARL (is_using_prioritized_marl; ROADMAP A.1, rl/priority.py)": (
-            p.is_using_prioritized_marl
-        ),
-        "opponent modeling (is_using_opponent_modeling; ROADMAP A.1, rl/opponent.py)": (
-            p.is_using_opponent_modeling
-        ),
-        "debug_numerics (ROADMAP A.1, utils/debug.py)": p.debug_numerics,
-    }
-    for what, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported to the PyTorch trainer")
-
-
 class MAPPOCAVs:
     """Multi-agent PPO trainer. Runs on `device` (by default
     `parameters.device`, "cuda")."""
@@ -159,8 +199,9 @@ class MAPPOCAVs:
         env: Optional[RoadTrafficEnv] = None,
         device: str | torch.device | None = None,
     ):
-        _check_ported(parameters)
         self.parameters = p = parameters
+        if p.debug_numerics:
+            enable_debug_numerics()
         self.env = env if env is not None else make_env(
             p, device=device if device is not None else p.device
         )
@@ -190,10 +231,31 @@ class MAPPOCAVs:
                 device=dev,
             )
 
-        self.policy_net = PolicyNet(cfg.obs_dim, 2, device=dev, seed=2 * p.random_seed)
-        self.critic_net = CentralizedCritic(
-            cfg.obs_dim, cfg.n_agents, device=dev, seed=2 * p.random_seed + 1
+        # XP-MARL pads the policy's observation with k * 2 columns for the
+        # propagated actions; opponent modeling's pad is part of cfg.obs_dim.
+        self.use_prio = p.is_using_prioritized_marl
+        self.use_om = p.is_using_opponent_modeling and not self.use_prio
+        self.prio_method = p.prioritization_method.lower()
+        if self.use_prio and self.prio_method not in ("marl", "random"):
+            raise ValueError(f"unknown prioritization_method {p.prioritization_method!r}")
+        self.k_nearing = cfg.n_nearing_agents_observed
+        self.pad_extra = 2 * self.k_nearing if self.use_prio else 0
+        self.policy_obs_dim = cfg.obs_dim + self.pad_extra
+        self.communication_noise_level = (
+            p.communication_noise_level if p.is_communication_noise else 0.0
         )
+
+        self.policy_net = PolicyNet(self.policy_obs_dim, 2, device=dev, seed=2 * p.random_seed)
+        self.critic_net = CentralizedCritic(
+            self.policy_obs_dim, cfg.n_agents, device=dev, seed=2 * p.random_seed + 1
+        )
+        self.prio_policy_net = self.prio_critic_net = None
+        if self.use_prio and self.prio_method == "marl":
+            seed = PRIORITY_SEED + 2 * p.random_seed
+            self.prio_policy_net = score_policy(cfg.obs_dim, device=dev, seed=seed)
+            self.prio_critic_net = score_critic(
+                cfg.obs_dim, cfg.n_agents, device=dev, seed=seed + 1
+            )
         self.low = -self.env.action_limits
         self.high = self.env.action_limits
         self.generator = torch.Generator(device=dev).manual_seed(p.random_seed)
@@ -222,31 +284,42 @@ class MAPPOCAVs:
                     p.episode_reward_intermediate = float(best)
         self.opt_state = self.optimizer.init(self.parameter_list())
 
-    def parameter_list(self, policy: nn.Module | None = None, critic: nn.Module | None = None):
-        """The policy's then the critic's parameters (the trainer's networks
-        unless others are given): the tensors the optimizer updates."""
-        policy = policy if policy is not None else self.policy_net
-        critic = critic if critic is not None else self.critic_net
-        return list(policy.parameters()) + list(critic.parameters())
+    def networks(self) -> tuple:
+        """The trainer's networks: policy, critic and, with learned
+        priority, the priority policy and critic."""
+        prio = () if self.prio_policy_net is None else (self.prio_policy_net, self.prio_critic_net)
+        return (self.policy_net, self.critic_net, *prio)
+
+    def parameter_list(self, *nets: nn.Module) -> List[Tensor]:
+        """The parameters of `nets` in order (the trainer's networks when
+        none are given): the tensors the optimizer updates."""
+        return [t for net in (nets or self.networks()) for t in net.parameters()]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ rollout
-    def env_transition(self, env_state: WorldState, action: Tensor, reset_draws=None):
+    def env_transition(
+        self, env_state: WorldState, action: Tensor, reset_draws=None, cbf_noise=None,
+        obs_noise=None,
+    ):
         """One env step of the rollout, through the filter the flags ask for."""
         p, env, cbf = self.parameters, self.env, self.cbf_filter
-        kw = dict(generator=self.generator, reset_draws=reset_draws)
+        kw = dict(generator=self.generator, reset_draws=reset_draws, obs_noise=obs_noise)
         if p.is_using_cbf_training and cbf is not None:
             if p.is_solve_qp and p.is_apply_cbf_action:
-                return cbf_filtered_step(env, cbf, env_state, action, **kw)
-            return cbf_margin_step(env, cbf, env_state, action, **kw)
+                return cbf_filtered_step(env, cbf, env_state, action, cbf_noise=cbf_noise, **kw)
+            return cbf_margin_step(env, cbf, env_state, action, cbf_noise=cbf_noise, **kw)
         return env.step(env_state, action, **kw)
 
-    def initial_state(self, reset_draws: ResetDraws | None = None) -> TrainState:
+    def initial_state(
+        self, reset_draws: ResetDraws | None = None, obs_noise: Tensor | None = None
+    ) -> TrainState:
         """A fresh episode in every env, and the trainer's networks."""
-        env_state, obs = self.env.reset(generator=self.generator, draws=reset_draws)
+        env_state, obs = self.env.reset(
+            generator=self.generator, draws=reset_draws, obs_noise=obs_noise
+        )
         B, N = obs.shape[:2]
         return TrainState(
             policy=self.policy_net,
@@ -256,7 +329,43 @@ class MAPPOCAVs:
             obs=obs,
             ep_reward_accum=torch.zeros((B, N), device=self.device),
             iteration=0,
+            prio_policy=self.prio_policy_net,
+            prio_critic=self.prio_critic_net,
         )
+
+    def _pad(self, obs: Tensor) -> Tensor:
+        """The policy's observation: `obs` with XP-MARL's zero tail."""
+        return nn.functional.pad(obs, (0, self.pad_extra)) if self.pad_extra else obs
+
+    def act(self, state: TrainState, env_state: WorldState, obs: Tensor, draws=None, t: int = 0):
+        """The policy's actions in the rollout's mode. Returns (action,
+        log_prob, the observation each agent acted on, priority scores and
+        their log-probabilities (None without learned priority))."""
+        low, high, gen = self.low, self.high, self.generator
+        noise = _draw(draws, "action_noise", t)
+        if self.use_prio:
+            prio = priority_rank(
+                self.prio_method, state.prio_policy, obs, gen,
+                noise=_draw(draws, "priority_noise", t), perms=_draw(draws, "priority_perms", t),
+            )
+            ap = prioritized_action_propagation(
+                state.policy, self._pad(obs), prio.rank,
+                nearing_agent_indices(env_state.d_agents, self.k_nearing), low, high, gen,
+                action_noise=noise, communication_noise_level=self.communication_noise_level,
+                communication_noise=_draw(draws, "communication_noise", t),
+            )
+            if state.prio_policy is None:
+                return ap.actions, ap.log_prob, ap.obs_used, None, None
+            return ap.actions, ap.log_prob, ap.obs_used, prio.scores, prio.log_prob
+        if self.use_om:
+            om = opponent_modeling_policy(
+                state.policy, obs, nearing_agent_indices(env_state.d_agents, self.k_nearing),
+                low, high, gen, action_noise=noise,
+            )
+            return om.actions, om.log_prob, om.obs_used, None, None
+        loc, scale = state.policy(obs)
+        action, log_prob = tanh_normal_sample(loc, scale, low, high, generator=gen, noise=noise)
+        return action, log_prob, obs, None, None
 
     @torch.no_grad()
     def rollout(self, state: TrainState, draws: IterationDraws | None = None):
@@ -268,40 +377,63 @@ class MAPPOCAVs:
         steps: List[Transition] = []
         solved = []
         for t in range(self.parameters.max_steps):
-            loc, scale = state.policy(obs)
-            action, log_prob = tanh_normal_sample(
-                loc, scale, self.low, self.high, generator=self.generator,
-                noise=None if draws is None else draws.action_noise[t],
-            )
+            action, log_prob, obs_ppo, scores, scores_lp = self.act(state, env_state, obs, draws, t)
             env_state, next_obs, reward, done, info = self.env_transition(
-                env_state, action, None if draws is None else draws.reset_draws[t]
+                env_state, action, _draw(draws, "reset_draws", t),
+                cbf_noise=_draw(draws, "cbf_noise", t), obs_noise=_draw(draws, "obs_noise", t),
             )
             if "cbf_solved" in info:
                 solved.append(info["cbf_solved"].float().mean())
             ep_accum = ep_accum + reward
             ep_at_done = ep_accum
             ep_accum = torch.where(done[:, None], torch.zeros_like(ep_accum), ep_accum)
-            steps.append(Transition(obs, action, log_prob, reward, done, next_obs, ep_at_done))
+            steps.append(Transition(
+                obs_ppo, action, log_prob, reward, done, next_obs, ep_at_done,
+                None if scores is None else obs, scores, scores_lp,
+            ))
             obs = next_obs
-        batch = Transition(*(torch.stack(f) for f in zip(*steps)))
+        batch = Transition(*(None if f[0] is None else torch.stack(f) for f in zip(*steps)))
         return env_state, obs, ep_accum, batch, torch.stack(solved).mean() if solved else None
 
     # ------------------------------------------------------------- update
-    def loss(self, policy, critic, mb: Dict[str, Tensor], entropy_noise: Tensor):
+    def loss(self, nets, mb: Dict[str, Tensor], entropy_noise: Tensor,
+             prio_entropy_noise: Tensor | None = None):
         """The PPO loss of a minibatch (obs, action, log_prob, adv, vt) and
-        its statistics."""
+        its statistics. `nets` = (policy, critic) or, with learned priority,
+        (policy, critic, priority policy, priority critic): then the
+        priority's Clip-PPO loss on its score stream (prio_obs,
+        prio_scores, prio_log_prob, prio_adv, prio_vt), with its own
+        entropy noise [mb, N, 1], is added and reported as
+        `loss_priority`."""
+        policy, critic = nets[:2]
         loc, scale = policy(mb["obs"])
         v = critic(mb["obs"])[..., 0]
-        return ppo_losses(
+        total, stats = ppo_losses(
             loc, scale, v, mb["action"], mb["log_prob"], mb["adv"], mb["vt"],
             self.low, self.high, self.ppo_cfg, entropy_noise,
         )
+        if len(nets) > 2:
+            prio_policy, prio_critic = nets[2:]
+            p_loc, p_scale = prio_policy(mb["prio_obs"])
+            p_v = prio_critic(mb["prio_obs"])[..., 0]
+            one = torch.ones((1,), device=p_v.device)
+            p_total, _ = ppo_losses(
+                p_loc, p_scale, p_v, mb["prio_scores"][..., None], mb["prio_log_prob"],
+                mb["prio_adv"], mb["prio_vt"], -one, one, self.ppo_cfg, prio_entropy_noise,
+            )
+            total = total + p_total
+            stats = {**stats, "loss_priority": p_total}
+        return total, stats
 
-    def minibatch_update(self, state_nets, opt_state: AdamState, mb, entropy_noise):
-        """One PPO gradient step on a minibatch. `state_nets` = (policy,
-        critic), updated in place. Returns (opt_state, loss stats)."""
-        params = self.parameter_list(*state_nets)
-        total, stats = self.loss(*state_nets, mb, entropy_noise)
+    def minibatch_update(self, nets, opt_state: AdamState, mb, entropy_noise,
+                         prio_entropy_noise: Tensor | None = None):
+        """One PPO gradient step on a minibatch. `nets` as in `loss`,
+        updated in place. Returns (opt_state, loss stats). Under
+        `debug_numerics` a non-finite loss raises before the step."""
+        params = self.parameter_list(*nets)
+        total, stats = self.loss(nets, mb, entropy_noise, prio_entropy_noise)
+        if self.parameters.debug_numerics:
+            assert_finite(total.detach(), "ppo_loss")
         grads = torch.autograd.grad(total, params)
         opt_state = self.optimizer.step(params, grads, opt_state)
         return opt_state, {k: v.detach() for k, v in stats.items()}
@@ -314,7 +446,7 @@ class MAPPOCAVs:
         (`cbf_solved_share`) and `seconds_{rollout,gae,update}` (host
         clock, the card synchronised at each phase's end)."""
         p, dev = self.parameters, self.device
-        nets = (state.policy, state.critic)
+        nets = state.networks
         n_mb = self.n_minibatches
         t0 = time.perf_counter()
 
@@ -324,13 +456,18 @@ class MAPPOCAVs:
         t1 = time.perf_counter()
 
         # 2. Values and GAE with the critic before this iteration's updates.
+        gamma, lmbda = self.ppo_cfg.gamma, self.ppo_cfg.lmbda
         with torch.no_grad():
             values = state.critic(batch.obs)[..., 0]  # [T, B, N]
-            next_values = state.critic(batch.next_obs)[..., 0]
+            next_values = state.critic(self._pad(batch.next_obs))[..., 0]
             advantages, value_targets = gae(
-                batch.reward, values, next_values, batch.done, self.ppo_cfg.gamma,
-                self.ppo_cfg.lmbda,
+                batch.reward, values, next_values, batch.done, gamma, lmbda
             )
+            if state.prio_critic is not None:
+                prio_adv, prio_vt = gae(
+                    batch.reward, state.prio_critic(batch.prio_obs)[..., 0],
+                    state.prio_critic(batch.next_obs)[..., 0], batch.done, gamma, lmbda,
+                )
         self._sync()
         t2 = time.perf_counter()
 
@@ -342,6 +479,12 @@ class MAPPOCAVs:
             obs=flat(batch.obs), action=flat(batch.action), log_prob=flat(batch.log_prob),
             adv=flat(advantages), vt=flat(value_targets),
         )
+        if state.prio_critic is not None:
+            data.update(
+                prio_obs=flat(batch.prio_obs), prio_scores=flat(batch.prio_scores),
+                prio_log_prob=flat(batch.prio_log_prob), prio_adv=flat(prio_adv),
+                prio_vt=flat(prio_vt),
+            )
         if p.is_prb:
             priorities = compute_td_error(batch.reward, values, next_values, batch.done).reshape(-1)
             data.update(
@@ -369,16 +512,23 @@ class MAPPOCAVs:
                 else:
                     idx = perm[m * mb_size:(m + 1) * mb_size]
                 mb = {k: v[idx] for k, v in data.items()}
-                noise = (torch.randn(mb_shape, generator=self.generator, device=dev)
-                         if draws is None else draws.entropy_noise[e, m])
-                opt_state, stats = self.minibatch_update(nets, opt_state, mb, noise)
+                noise = _draw(draws, "entropy_noise", (e, m))
+                if noise is None:
+                    noise = torch.randn(mb_shape, generator=self.generator, device=dev)
+                prio_noise = None
+                if state.prio_policy is not None:
+                    prio_noise = _draw(draws, "priority_entropy_noise", (e, m))
+                    if prio_noise is None:
+                        prio_noise = torch.randn(mb_shape[:-1] + (1,), generator=self.generator,
+                                                 device=dev)
+                opt_state, stats = self.minibatch_update(nets, opt_state, mb, noise, prio_noise)
                 if p.is_prb:
                     # Refresh the sampled frames' priorities with the
                     # updated critic.
                     with torch.no_grad():
                         td = compute_td_error(
                             mb["reward"], state.critic(mb["obs"])[..., 0],
-                            state.critic(mb["next_obs"])[..., 0], mb["done"],
+                            state.critic(self._pad(mb["next_obs"]))[..., 0], mb["done"],
                         )
                     priorities[idx] = td
                 mb_stats.append(stats)
@@ -409,7 +559,8 @@ class MAPPOCAVs:
         new_state = TrainState(
             policy=state.policy, critic=state.critic, opt_state=opt_state,
             env_state=env_state, obs=obs, ep_reward_accum=ep_accum,
-            iteration=state.iteration + 1,
+            iteration=state.iteration + 1, prio_policy=state.prio_policy,
+            prio_critic=state.prio_critic,
         )
         return new_state, metrics
 
@@ -420,7 +571,8 @@ class MAPPOCAVs:
     def train(self, progress_callback: Optional[Callable[[int, dict], None]] = None):
         """Run the whole training loop. Returns (env, decision_making_module,
         optimization_module, priority_module, cbf_controllers, parameters);
-        the priority module and the CBF controllers are None."""
+        the priority module and the CBF controllers are None. Checkpoints
+        hold the policy and the critic only."""
         p = self.parameters
         state = self.initial_state()
         saver = ckpt.RewardKeyedCheckpointer(p)

@@ -3,11 +3,14 @@
 `PolicyNet`: a 3x256 Tanh MLP shared across agents, whose head splits into
 (loc, scale) with a biased-softplus scale. `CentralizedCritic`: the MAPPO
 critic, one value from all agents' observations, broadcast to every agent;
-`DecentralizedCritic`: one value per agent. `tanh_normal_sample`,
-`tanh_normal_log_prob` and `tanh_normal_mode` squash a normal into the
-action box. `policy_from_jax_params` / `critic_from_jax_params` carry
-weights over from the JAX package's flax parameters and `to_jax_params`
-gives them back in that layout.
+`DecentralizedCritic`: one value per agent. `score_policy` and
+`score_critic` build the 2x256 networks of a 1-D score in (-1, 1):
+XP-MARL's priority actor-critic and the learned-CBF module's.
+`tanh_normal_sample`, `tanh_normal_log_prob` and `tanh_normal_mode` squash
+a normal into the action box. `policy_from_jax_params` /
+`critic_from_jax_params` carry weights over from the JAX package's flax
+parameters (they read the widths from the tree, so they load the score
+networks too) and `to_jax_params` gives them back in that layout.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ Tensor = torch.Tensor
 _SOFTPLUS_BIAS_1 = math.log(math.e - 1.0)  # softplus(bias) == 1.0
 _SCALE_LB = 1e-4
 HIDDEN = (256, 256, 256)
+SCORE_HIDDEN = (256, 256)  # the priority and learned-CBF networks
 
 
 def full_fp32_matmuls() -> None:
@@ -126,6 +130,26 @@ class DecentralizedCritic(nn.Module):
 
     def forward(self, obs: Tensor) -> Tensor:
         return self.mlp(obs)
+
+
+def score_policy(
+    obs_dim: int, device: str | torch.device | None = None, seed: int = 0
+) -> PolicyNet:
+    """Policy of a 1-D TanhNormal score: obs [..., N, obs_dim] -> (loc,
+    scale), each [..., N, 1], on a 2x256 Tanh MLP (XP-MARL's `PriorityNet`,
+    the learned-CBF module's `CBFScoreNet`)."""
+    return PolicyNet(obs_dim, 1, SCORE_HIDDEN, device=device, seed=seed)
+
+
+def score_critic(
+    obs_dim: int, n_agents: int | None, device: str | torch.device | None = None, seed: int = 1
+) -> nn.Module:
+    """Critic of a score policy on a 2x256 Tanh MLP: centralized over
+    `n_agents` agents (XP-MARL's `PriorityCritic`, the learned-CBF module's
+    MAPPO critic), or per agent with `n_agents=None`."""
+    if n_agents is None:
+        return DecentralizedCritic(obs_dim, SCORE_HIDDEN, device=device, seed=seed)
+    return CentralizedCritic(obs_dim, n_agents, SCORE_HIDDEN, device=device, seed=seed)
 
 
 # ------------------------------------------------------------ flax layout

@@ -1,14 +1,15 @@
-"""The trainer's optimizer: global-norm clipping, then Adam with a
-linearly decaying learning rate.
+"""The optimizers: the trainer's global-norm clipping, then Adam with a
+linearly decaying learning rate (`ClippedAdam`), and plain Adam at a
+constant rate (`Adam`, optax's `adam(lr)`).
 
-It reproduces the JAX package's optax chain
+`ClippedAdam` reproduces the JAX package's optax chain
 `chain(clip_by_global_norm(max_grad_norm), adam(lr_schedule))` step for
 step:
 
-- one global norm over all parameters given together (policy and critic
-  form one tree there); gradients are kept as they are when the norm is
-  below `max_grad_norm` and scaled by `max_grad_norm / norm` otherwise
-  (`g / norm * max`, with no epsilon);
+- one global norm over all parameters given together (policy, critic and,
+  under XP-MARL, the priority networks form one tree there); gradients
+  are kept as they are when the norm is below `max_grad_norm` and scaled
+  by `max_grad_norm / norm` otherwise (`g / norm * max`, with no epsilon);
 - Adam with b1=0.9, b2=0.999, eps=1e-8, eps_root=0 and optax's bias
   correction, `m / (1 - b1^k)` and `v / (1 - b2^k)` at step k;
 - the learning rate `lr_min + (lr - lr_min) * (1 - (count //
@@ -32,22 +33,15 @@ class AdamState(NamedTuple):
     nu: List[Tensor]
 
 
-class ClippedAdam:
-    def __init__(
-        self,
-        max_grad_norm: float,
-        lr: float,
-        lr_min: float,
-        updates_per_iter: int,
-        n_iters: int,
-    ):
-        self.max_grad_norm = max_grad_norm
-        self.lr, self.lr_min = lr, lr_min
-        self.updates_per_iter, self.n_iters = updates_per_iter, n_iters
+class Adam:
+    """optax's `adam(lr)` at a constant learning rate, with no clipping (the
+    learned-CBF module's optimizer)."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
 
     def learning_rate(self, count: int) -> float:
-        frac = 1.0 - (count // self.updates_per_iter) / self.n_iters
-        return self.lr_min + (self.lr - self.lr_min) * frac
+        return self.lr
 
     def init(self, params: Sequence[Tensor]) -> AdamState:
         """Fresh moments (zeros) for `params`."""
@@ -57,11 +51,8 @@ class ClippedAdam:
 
     @torch.no_grad()
     def step(self, params: Sequence[Tensor], grads: Sequence[Tensor], state: AdamState) -> AdamState:
-        """Apply one clipped Adam update to `params` in place; returns the
-        new state. Runs on the parameters' device without a host sync."""
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        keep = norm < self.max_grad_norm
-        grads = [torch.where(keep, g, g / norm * self.max_grad_norm) for g in grads]
+        """Apply one Adam update to `params` in place; returns the new
+        state. Runs on the parameters' device without a host sync."""
         k = state.count + 1
         bc1, bc2 = 1 - B1**k, 1 - B2**k
         step_size = -self.learning_rate(state.count)
@@ -74,3 +65,33 @@ class ClippedAdam:
             mu.append(m)
             nu.append(v)
         return AdamState(k, mu, nu)
+
+
+class ClippedAdam(Adam):
+    """The trainer's chain: global-norm clipping, then Adam at the linear
+    schedule."""
+
+    def __init__(
+        self,
+        max_grad_norm: float,
+        lr: float,
+        lr_min: float,
+        updates_per_iter: int,
+        n_iters: int,
+    ):
+        super().__init__(lr)
+        self.max_grad_norm = max_grad_norm
+        self.lr_min = lr_min
+        self.updates_per_iter, self.n_iters = updates_per_iter, n_iters
+
+    def learning_rate(self, count: int) -> float:
+        frac = 1.0 - (count // self.updates_per_iter) / self.n_iters
+        return self.lr_min + (self.lr - self.lr_min) * frac
+
+    @torch.no_grad()
+    def step(self, params: Sequence[Tensor], grads: Sequence[Tensor], state: AdamState) -> AdamState:
+        """Clip the gradients by their global norm, then one Adam update."""
+        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        keep = norm < self.max_grad_norm
+        grads = [torch.where(keep, g, g / norm * self.max_grad_norm) for g in grads]
+        return super().step(params, grads, state)

@@ -141,7 +141,6 @@ class CBFSafetyFilter:
             "the CLF nominal controller": cfg.nom_controller_type != "rl",
             "fp16_parity": cfg.fp16_parity,
             "the windowed pseudo-distance": cfg.use_windowed_pseudo_distance,
-            "observation noise in the filter": cfg.is_obs_noise,
         }
         for what, on in unported.items():
             if on:
@@ -294,18 +293,29 @@ class CBFSafetyFilter:
         return A_i, A_j, b0, h
 
     def assemble(
-        self, state: WorldState, rl_actions: Tensor, group_id: Tensor | None = None
+        self,
+        state: WorldState,
+        rl_actions: Tensor,
+        group_id: Tensor | None = None,
+        noise: Tensor | None = None,
+        generator: torch.Generator | None = None,
     ) -> Tuple[StructuredConstraintSet, Tensor, Tensor, Dict[str, Tensor]]:
         """Build the batched constraint set (block-sparse form) and the
         nominal input. Returns (constraints, u_nom [B,N,2], rl_clamped
         [B,N,2], aux dict for the margins). Rows per agent: 2C lane rows
         (circle x side) + 2 CLF rows (invalid under the RL nominal); per
         pair: C^2 coupled rows, and in grouped mode (with `group_id`
-        [B, N]) C^2 more j-sided rows."""
+        [B, N]) C^2 more j-sided rows. With `is_obs_noise` the RL actions
+        are perturbed by `obs_noise_level` times uniforms [B, N, 2] first
+        (`noise`, else drawn from `generator`), in every filter mode."""
         cfg = self.cfg
         B, N = state.pos.shape[:2]
         C = cfg.n_circles
         dev, f32 = state.pos.device, state.pos.dtype
+        if cfg.is_obs_noise:
+            if noise is None:
+                noise = torch.rand(rl_actions.shape, generator=generator, device=dev)
+            rl_actions = rl_actions + noise * cfg.obs_noise_level
         rl_clamped, u_nom = self.rl_action_to_u(rl_actions, state.speed, state.steering)
 
         centers = circle_centers_world(self.approx, state.pos, state.rot)  # [B,N,C,2]
@@ -420,17 +430,22 @@ class CBFSafetyFilter:
         )
 
     def filter_actions(
-        self, state: WorldState, rl_actions: Tensor, u_init: Tensor | None = None
+        self,
+        state: WorldState,
+        rl_actions: Tensor,
+        u_init: Tensor | None = None,
+        noise: Tensor | None = None,
+        generator: torch.Generator | None = None,
     ) -> CBFStepInfo:
         """Solve the batched CBF-QP and return safe (speed, steering)
         targets. `u_init` (the previous step's solution) warm-starts the
         Newton iteration. Grouped mode groups the agents of every env by
-        position first."""
+        position first. `noise` and `generator` as in `assemble`."""
         cfg = self.cfg
         group_id = None
         if self.grouped:
             group_id = group_agents_k_nearest(state.pos, self.max_group_size)
-        cons, u_nom, rl_clamped, aux = self.assemble(state, rl_actions, group_id)
+        cons, u_nom, rl_clamped, aux = self.assemble(state, rl_actions, group_id, noise, generator)
         u_star, F = solve_structured_qp(
             cons, u_nom,
             (cfg.w_u_acc, cfg.w_u_steer), (self.a_min, self.rate_min),
@@ -469,10 +484,17 @@ class CBFSafetyFilter:
             **margins,
         )
 
-    def nominal_margin_rewards(self, state: WorldState, rl_actions: Tensor) -> Dict[str, Tensor]:
+    def nominal_margin_rewards(
+        self,
+        state: WorldState,
+        rl_actions: Tensor,
+        noise: Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> Dict[str, Tensor]:
         """Margins-only mode: the CBF-informed shaping rewards at the
-        nominal action, from the assembled rows without a solve."""
-        _, u_nom, _, aux = self.assemble(state, rl_actions)
+        nominal action, from the assembled rows without a solve. `noise`
+        and `generator` as in `assemble`."""
+        _, u_nom, _, aux = self.assemble(state, rl_actions, None, noise, generator)
         return self._margins_from_aux(u_nom, aux)
 
     def _margins_from_aux(self, u_nom: Tensor, aux: Dict[str, Tensor]) -> Dict[str, Tensor]:

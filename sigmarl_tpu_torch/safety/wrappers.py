@@ -20,15 +20,22 @@ def cbf_filtered_step(
     generator: torch.Generator | None = None,
     apply_cbf_action: bool = True,
     reset_draws: ResetDraws | None = None,
+    cbf_noise: torch.Tensor | None = None,
+    obs_noise: torch.Tensor | None = None,
 ):
     """One env step through the CBF-QP safety filter, warm-started from the
     previous step's solution.
 
     With `apply_cbf_action` the filtered action is applied and the RL
     action recorded as nominal; otherwise the nominal action is applied and
-    the would-be safe action recorded. Returns (state', obs, reward, done,
-    info) with the filter's diagnostics merged into info."""
-    finfo = cbf.filter_actions(state, rl_actions, u_init=state.cbf_u_prev)
+    the would-be safe action recorded. `cbf_noise` is the filter's
+    observation-noise draw (`CBFSafetyFilter.assemble`), `reset_draws` and
+    `obs_noise` the env step's; what is not given comes from `generator`.
+    Returns (state', obs, reward, done, info) with the filter's diagnostics
+    merged into info."""
+    finfo = cbf.filter_actions(
+        state, rl_actions, u_init=state.cbf_u_prev, noise=cbf_noise, generator=generator
+    )
     if apply_cbf_action:
         applied, nominal = finfo.safe_actions, finfo.nominal_actions
     else:
@@ -37,7 +44,7 @@ def cbf_filtered_step(
         state, nominal_action=nominal, applied_action=applied, cbf_u_prev=finfo.u_star
     )
     state, obs, reward, done, info = env.step(
-        state, applied, generator=generator, reset_draws=reset_draws
+        state, applied, generator=generator, reset_draws=reset_draws, obs_noise=obs_noise
     )
     info = dict(info)
     info.update(
@@ -56,17 +63,21 @@ def cbf_margin_step(
     rl_actions: torch.Tensor,
     generator: torch.Generator | None = None,
     reset_draws: ResetDraws | None = None,
+    cbf_noise: torch.Tensor | None = None,
+    obs_noise: torch.Tensor | None = None,
 ):
     """One env step in margins-only mode (CBF-informed training,
     `is_solve_qp=False`): the shaping rewards from the constraint margins
     at the nominal action are written into the state for the "cbf" reward
-    method, then the env steps with the unfiltered action. Returns
-    (state', obs, reward, done, info)."""
-    rews = cbf.nominal_margin_rewards(state, rl_actions)
+    method, then the env steps with the unfiltered action. Draws as in
+    `cbf_filtered_step`. Returns (state', obs, reward, done, info)."""
+    rews = cbf.nominal_margin_rewards(state, rl_actions, noise=cbf_noise, generator=generator)
     state = replace_state(
         state,
         rew_near_left_lane=rews["rew_near_left_lane"],
         rew_near_right_lane=rews["rew_near_right_lane"],
         rew_near_other_agents_cbf=rews["rew_near_other_agents"],
     )
-    return env.step(state, rl_actions, generator=generator, reset_draws=reset_draws)
+    return env.step(
+        state, rl_actions, generator=generator, reset_draws=reset_draws, obs_noise=obs_noise
+    )

@@ -24,6 +24,11 @@ from tests.torch_parity import env_reset_draws, envs, params, step_reset_draws, 
 
 torch.set_num_threads(1)
 B, N = 4, 15
+# Env options that once raised and are ported now.
+PORTED_ENV_OPTIONS = {
+    "n_observed_steps", "is_use_mtv_distance", "is_obs_noise", "is_using_opponent_modeling",
+    "is_using_prioritized_marl",
+}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -147,9 +152,20 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     ],
 )
 def test_unported_env_options_raise(flag):
+    """Options still unported raise; those ported since (history, MTV,
+    noise, the opponent-modeling pad, XP-MARL's env config) build, reset
+    and step with finite outputs."""
     from sigmarl_tpu_torch import make_env
 
     p = tcfg.Parameters(**{**params("cpm_entire", N, B), **flag})
+    if set(flag) <= PORTED_ENV_OPTIONS:
+        env = make_env(p, device="cpu")
+        g = torch.Generator().manual_seed(0)
+        state, obs = env.reset(generator=g)
+        state, obs, rew, done, _ = env.step(state, torch.zeros((B, N, 2)), generator=g)
+        assert obs.shape == (B, N, env.obs_dim)
+        assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(rew).all())
+        return
     with pytest.raises(NotImplementedError):
         make_env(p, device="cpu")
 
@@ -166,9 +182,20 @@ def test_unported_env_options_raise(flag):
     ],
 )
 def test_unported_filter_options_raise(pair, cbf_kw, filter_kw):
+    """Filter options still unported raise; observation noise, ported
+    since, builds and filters one step with finite outputs."""
     from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter
 
     _, tenv = pair
+    if cbf_kw == dict(is_obs_noise=True):
+        cbf = CBFSafetyFilter(CBFConfig(n_agents=N, obs_noise_level=0.05, **cbf_kw), tenv.cfg,
+                              tenv.tables, device="cpu", **filter_kw)
+        g = torch.Generator().manual_seed(1)
+        state, _ = tenv.reset(generator=g)
+        info = cbf.filter_actions(state, torch.full((B, N, 2), 0.3), generator=g)
+        assert bool(info.solved.all()) and bool(torch.isfinite(info.safe_actions).all())
+        assert not bool((info.nominal_actions[..., 0] == 0.3).any())  # the noise moved them
+        return
     with pytest.raises(NotImplementedError):
         CBFSafetyFilter(CBFConfig(n_agents=N, **cbf_kw), tenv.cfg, tenv.tables,
                         device="cpu", **filter_kw)

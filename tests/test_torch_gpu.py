@@ -460,3 +460,83 @@ def test_main_training_on_the_card(tmp_path, capsys):
     (d,) = os.listdir(tmp_path)
     assert {"info.txt", "final_policy.pkl", "final_critic.pkl"} <= set(os.listdir(tmp_path / d))
     assert "iter 1/1" in capsys.readouterr().out
+
+
+def test_xpmarl_propagation_on_the_card_matches_the_cpu():
+    """One XP-MARL propagation step (N=4, B=8, communication noise on) on
+    the card against the CPU from the same weights and draws: actions,
+    log-probabilities and the observations acted on to atol 1e-5."""
+    from sigmarl_tpu_torch.rl.networks import PolicyNet
+    from sigmarl_tpu_torch.rl.priority import prioritized_action_propagation
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    Bs, Ns, D, K = 8, 4, 30, 2
+    g = torch.Generator().manual_seed(5)
+    obs = torch.nn.functional.pad(torch.randn((Bs, Ns, D), generator=g), (0, 2 * K))
+    rank = torch.stack([torch.randperm(Ns, generator=g) for _ in range(Bs)])
+    nearing = torch.randint(0, Ns, (Bs, Ns, K), generator=g)
+    noise, comm = torch.randn((Ns, Bs, 2), generator=g), torch.randn((Ns, Bs, 2 * K), generator=g)
+    lim = torch.tensor([1.0, 0.54])
+    outs = [prioritized_action_propagation(
+        PolicyNet(D + 2 * K, device=d, seed=3), *(x.to(d) for x in (obs, rank, nearing, -lim, lim)),
+        action_noise=noise.to(d), communication_noise_level=0.1, communication_noise=comm.to(d))
+        for d in ("cpu", "cuda")]
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+def test_env_step_with_mtv_noise_and_history_on_the_card_matches_the_cpu():
+    """One env step with the MTV distance, observation noise and a history
+    of 2 (cpm_mixed, N=4, B=8) from the same state, actions and draws:
+    rewards and positions to atol 2e-5, observations and history to 1e-4,
+    done flags equal."""
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.env.structs import state_to
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    p = Parameters(scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=8, dt=0.1,
+                   max_steps=6, n_observed_steps=2)
+    assert p.is_use_mtv_distance and p.is_obs_noise
+    env_c, env_g = make_env(p, device="cpu"), make_env(p, device="cuda")
+    g = torch.Generator().manual_seed(2)
+    state, _ = env_c.reset(generator=g)
+    for _ in range(4):
+        act = (2 * torch.rand((8, 4, 2), generator=g) - 1) * env_c.action_limits
+        state, *_ = env_c.step(state, act, generator=g)
+    draws = ResetDraws.sample(env_c.cfg, g, "cpu")
+    draws_g = ResetDraws(*(None if x is None else x.cuda() for x in (
+        draws.scenario_gumbel, draws.path_u, draws.point_u, draws.speed_u)))
+    u = torch.rand((8, 4, env_c.obs_dim), generator=g)
+    sc, oc, rc, dc, _ = env_c.step(state, act, reset_draws=draws, obs_noise=u)
+    sg, og, rg, dg, _ = env_g.step(state_to(state, torch.device("cuda")), act.cuda(),
+                                   reset_draws=draws_g, obs_noise=u.cuda())
+    assert bool(dc.any())  # the step resets envs (max_steps), refilling their history
+    torch.testing.assert_close(rg.cpu(), rc, atol=2e-5, rtol=0)
+    torch.testing.assert_close(sg.pos.cpu(), sc.pos, atol=2e-5, rtol=0)
+    torch.testing.assert_close(og.cpu(), oc, atol=1e-4, rtol=0)
+    torch.testing.assert_close(sg.obs_history.cpu(), sc.obs_history, atol=1e-4, rtol=0)
+    assert torch.equal(dg.cpu(), dc)
+
+
+def test_xpmarl_iteration_on_the_card(tmp_path):
+    """One learned-priority XP-MARL iteration on the card (cpm_mixed, N=4,
+    B=8, T=8, communication noise, the defaults' MTV distance and noise):
+    finite losses, the priority loss included, no kernel launched."""
+    from sigmarl_tpu_torch.rl.mappo_cavs import MAPPOCAVs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    p = Parameters(scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=8, dt=0.1, max_steps=8,
+                   n_iters=2, num_epochs=2, minibatch_size=32, is_using_prioritized_marl=True,
+                   is_communication_noise=True, where_to_save=str(tmp_path) + "/", device="cuda")
+    tr = MAPPOCAVs(p)
+    state = tr.initial_state()
+    k1, k2 = newton_solve.launches, pseudo_distance_stencil.launches
+    state, m = tr.train_iteration(state)
+    torch.cuda.synchronize()
+    assert (newton_solve.launches, pseudo_distance_stencil.launches) == (k1, k2)
+    for k in ("loss_objective", "loss_critic", "loss_priority"):
+        assert np.isfinite(float(m[k])), k
+    assert bool(torch.isfinite(state.obs).all()) and state.opt_state.count == 4

@@ -89,3 +89,15 @@ def env_reset_draws(key, cfg) -> ResetDraws:
     """Draws of the JAX package's `env.reset(key)`."""
     k_state, _ = jax.random.split(key)
     return reset_draws(k_state, cfg)
+
+
+def obs_noise_array(key, cfg):
+    """The observation noise's uniforms [B, N, obs_dim] that the JAX
+    package's `env.reset(key)` and `env.step(..., key)` draw (from the
+    second half of their key split), as a JAX array; traceable."""
+    _, k_obs = jax.random.split(key)
+    return jax.random.uniform(k_obs, (cfg.batch_dim, cfg.n_agents, cfg.obs_dim))
+
+
+def obs_noise_draws(key, cfg) -> torch.Tensor:
+    return torch.from_numpy(np.array(obs_noise_array(key, cfg)))
