@@ -40,7 +40,8 @@ Phases, in order; any failure exits non-zero before the result line:
    B=1024, T=16, centralized filter at its 2+15 budget, minibatch 4096) and
    one decentralized at N=4, B=32: K1 and K2 launched 16 times each, the
    solved share, finite obs, rewards and losses; K1 against its plain
-   version and timed on the centralized input at 2+15;
+   version and timed on the centralized input at 2+15; the centralized
+   run's weights saved as a reward-keyed checkpoint for phase 14;
 10. one PPO minibatch update on the card against the CPU at a small size
     (loss, gradients, updated parameters);
 11. XP-MARL as the ICRA'25 priority comparison runs it (cpm_mixed, N=4,
@@ -61,10 +62,36 @@ Phases, in order; any failure exits non-zero before the result line:
     XP-MARL propagation step (N=4, B=8; actions to atol 1e-5) and one env
     step with the MTV distance, observation noise and a history of 2 (the
     tolerances of phase 6);
-14. kernel times beside each kernel's bound and its plain version's time,
+14. testing (`main_testing`'s function) on phase 9's centralized model
+    directory (cpm_entire, N=15, the 3x256 policy), deterministic, B=32,
+    128 recorded steps: finite records, single-agent resets counted, the
+    JAX function's metric keys, no kernel launched; env-steps/s and the
+    share of steps that ran the reset;
+15. CBF evaluation (`main_eval`'s function at its defaults: cpm_mixed,
+    N=4, B=32, CLF nominal, windowed flag set), 128 steps centralized and
+    then decentralized: K1 and K2 once per step, solved share 1.0, a
+    finite QP infeasibility rate; then 32 steps of the same env and filter
+    with pd_topk_chunks = 0, the one setting that takes the windowed
+    stencil, through the eval layer's `rollout`, with the same checks;
+16. the ITSC'25 filter sweep (one agent, B=32, CLF at 0.6 m/s) for 1 to 5
+    circles, 32 steps each: K1 at P = 0 and K2 once per step;
+17. CLF-filtered testing at the main path's width (N=15, B=1024, 3+5, 16
+    steps), and AT25 (`eval/at25.py::run_model`, scripted, N=15, B=1,
+    256 steps from `default_poses`): the event counts;
+18. the kernels on those inputs against their plain versions: K1 with
+    active CLF rows (near-zero ones injected) at N=4 and N=15 and at P = 0
+    for C = 1, 3 and 5, controls after 0 and 1 iterations bit for bit and
+    F as in phase 4; K2 at C = 1 and 5 and with a window's chunks as the
+    selection, bit for bit; then one testing-mode, CLF-filtered,
+    fp16-parity step on the card against the CPU (N=4, B=8;
+    `sigmarl_tpu_torch/utils/card_checks.py`, shared with the card test);
+19. kernel times beside each kernel's bound and its plain version's time,
     K1's shared memory, blocks per SM and waves, the launches on every
-    path above and K1's grouped and training-budget timings (with their
-    plain versions' times), as one JSON line; then the result line. `ms`
+    path above, K1's grouped, training-budget, CLF and one-agent timings
+    and K2's at 1 and 5 circles and with the window (each with its plain
+    version's time, its launches on its path and its largest difference
+    from its plain version in phase 18), as one JSON line; then
+    the result line. `ms`
     (with `ms_min`, `ms_max`) is the median, least and largest of 7
     CUDA-event windows queued behind a spin on the card, warmed up: the
     card's time alone. `back_to_back_ms` is the median of 7 windows of
@@ -305,11 +332,12 @@ def capture_kernel_inputs(env, cbf, policy, gen, state, obs):
     return qp_args, qp_static, pd_args
 
 
-def check_qp(qp_args, qp_static, label: str = "", budgets=((30, 0), (5, 3))) -> float:
+def check_qp(qp_args, qp_static, label: str = "", budgets=((30, 0), (5, 3)),
+             atol: float = 2e-5) -> float:
     """K1 against its plain version on one input: controls after 0 and 1
-    iterations to atol 2e-5, F after 30 iterations to a relative 1e-4 and
-    at each other (stiff, soft) budget to 1e-3. Returns the largest control
-    difference."""
+    iterations to `atol` (0: bit for bit), F after 30 iterations to a
+    relative 1e-4 and at each other (stiff, soft) budget to 1e-3. Returns
+    the largest control difference."""
     import torch
 
     from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference
@@ -320,8 +348,9 @@ def check_qp(qp_args, qp_static, label: str = "", budgets=((30, 0), (5, 3))) -> 
         u_p, _ = newton_solve_reference(*qp_args, *qp_static, it)
         torch.cuda.synchronize()
         err = float((u_k - u_p).abs().max())
-        print(f"K1{label} {it} iterations: max |u_kernel - u_plain| = {err:.3e} (atol 2e-5)")
-        check(err <= 2e-5, f"K1{label} controls after {it} iterations differ by {err}")
+        print(f"K1{label} {it} iterations: max |u_kernel - u_plain| = {err:.3e} (atol {atol:g})")
+        check(err <= atol and bool(torch.isfinite(u_k).all()),
+              f"K1{label} controls after {it} iterations differ by {err}")
         worst = max(worst, err)
     for it, soft in budgets:
         tol = 1e-4 if (it, soft) == (30, 0) else 1e-3
@@ -440,15 +469,21 @@ def small_input_check(dev) -> None:
     check(obs_g.shape == (B, N_AGENTS, env_g.obs_dim), f"obs shape {tuple(obs_g.shape)}")
 
 
+def qp_sizes(qp_args):
+    """(N, Ks, Kp, P, B) of K1's inputs; Kp = 0 for one agent (no pairs)."""
+    singles, pairs, u0 = qp_args[:3]
+    B, d = u0.shape
+    N, P = d // 2, qp_args[5].shape[0]
+    return N, singles.shape[-1] // N, (pairs.shape[-1] // P if P else 0), P, B
+
+
 def k1_timing(qp_args, qp_static, n_iters: int, soft_iters: int) -> dict:
     """K1 queued behind a spin at one budget, with its bound, footprint and
     its plain version's time on the same input."""
     from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference, solve_occupancy
 
-    singles, pairs, u0 = qp_args[:3]
-    B, d = u0.shape
-    N, P = d // 2, qp_args[5].shape[0]
-    Ks, Kp = singles.shape[-1] // N, pairs.shape[-1] // P
+    N, Ks, Kp, P, B = qp_sizes(qp_args)
+    d = 2 * N
     nbytes = sum(t.numel() * t.element_size() for t in qp_args) + (d + 1) * 4 * B
     bound, by = bound_ms(B * qp_flops(N, Ks, Kp, P, n_iters, soft_iters), nbytes)
     win = cuda_ms_windows(lambda: newton_solve(*qp_args, *qp_static, n_iters,
@@ -459,6 +494,32 @@ def k1_timing(qp_args, qp_static, n_iters: int, soft_iters: int) -> dict:
     return dict(N=N, B=B, Kp=Kp, budget=f"{soft_iters}+{n_iters}", **win, bound_ms=bound,
                 bound_by=by, plain_ms=plain, smem_bytes=occ["smem_bytes"],
                 blocks_per_sm=occ["blocks_per_sm"], waves=occ["waves"])
+
+
+def k2_timing(pd_args) -> dict:
+    """K2 queued behind a spin on one input, with its bound and its plain
+    version's time. The bound counts what this input needs: every selected
+    segment tested once per row and side, and the exact evaluation for all
+    queries of a row only on the segments that count for at least one of
+    them (`bound_all`: every selected segment evaluated for every query)."""
+    from sigmarl_tpu_torch.ops.boundary import (
+        pseudo_distance_stencil, pseudo_distance_stencil_reference,
+    )
+    from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, chunk_rows, counting_segments
+
+    q, pid, lseg, rseg, cl, cr = pd_args
+    R, Q = q.shape[:2]
+    n_seg = cl.shape[1] * PD_CHUNK
+    counting = sum(int(counting_segments(q, chunk_rows(seg, pid, ch)).sum())
+                   for seg, ch in ((lseg, cl), (rseg, cr)))
+    flops = 2 * R * n_seg * _TEST_OPS + counting * Q * _SEG_OPS + 2 * R * Q
+    nbytes = sum(t.numel() * t.element_size() for t in (q, pid, lseg, rseg, cl, cr)) + 2 * R * Q * 4
+    bound, by = bound_ms(flops, nbytes)
+    win = cuda_ms_windows(lambda: pseudo_distance_stencil(*pd_args), reps=200, queued=True)
+    plain = cuda_ms(lambda: pseudo_distance_stencil_reference(*pd_args), reps=20)
+    return dict(rows=R, queries=Q, chunks=cl.shape[1], **win, bound_ms=bound, bound_by=by,
+                plain_ms=plain, segments=n_seg, counting=counting,
+                bound_all=bound_ms(2 * R * Q * (n_seg * _SEG_OPS + 1), nbytes))
 
 
 def print_k1_timing(what: str, r: dict, smi: str) -> None:
@@ -587,7 +648,8 @@ def filtered_training_phase(dev, smi, workdir) -> dict:
     B=1024, T=16, centralized filter at its default 2+15 budget, one epoch
     of minibatch 4096), then the same trainer decentralized at N=4, B=32:
     one iteration each, K1 and K2 launched once per rollout step. Returns
-    the launches and K1's timing on the centralized input at 2+15."""
+    the launches, K1's timing on the centralized input at 2+15, and the
+    model directory of the centralized run's checkpoint."""
     import math
 
     import torch
@@ -622,6 +684,16 @@ def filtered_training_phase(dev, smi, workdir) -> dict:
             check(n == p.max_steps, f"{k} launched {n} times in {p.max_steps} {name} steps")
         out[name] = launches
         if name == "centralized":
+            # The model directory the testing phase loads: this iteration's
+            # weights under a reward key (episodes rarely end in 16 steps).
+            from sigmarl_tpu_torch.rl import checkpoint as ckpt
+
+            rew = float(m["episode_reward_mean"])
+            rew = round(rew, 2) if math.isfinite(rew) else 0.0
+            saver = ckpt.RewardKeyedCheckpointer(p)
+            check(saver.maybe_save(rew, tr.checkpoint_params(state), [rew]),
+                  "the filtered-training checkpoint was not written")
+            out["model_dir"] = saver.dir
             with torch.no_grad():
                 loc, scale = state.policy(state.obs)
                 act, _ = tanh_normal_sample(loc, scale, tr.low, tr.high, generator=tr.generator)
@@ -871,39 +943,365 @@ def xpmarl_small_check(dev) -> None:
           "wrong observation or history shape")
 
 
-def kernel_report(qp_args, qp_static, pd_args, launches, errs, paths) -> list:
+# CBF evaluation as `python -m sigmarl_tpu_torch.main_eval` runs it at its
+# defaults (cpm_mixed, N=4, B=32, CLF nominal, windowed flag set), cut to
+# 128 of its 600 steps; the ITSC'25 filter sweep (`sigmarl_tpu/eval/
+# papers.py:215-262`: one agent, the CLF controller, 0.6 m/s) cut to 32 of
+# 600 steps per circle count; the testing rollout cut to 128 of 1200 steps;
+# AT25 to 256 of 18,000.
+EVAL_STEPS, ITSC_STEPS, TESTING_STEPS, AT25_STEPS, WIDE_CLF_STEPS = 128, 32, 128, 256, 16
+# The windowed stencil's run (pd_topk_chunks = 0), which no paper's run sets.
+WINDOW_STEPS = 32
+
+
+def launch_counts() -> dict:
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.ops.qp import newton_solve
+
+    return {"qp_newton": newton_solve.launches, "boundary_stencil": pseudo_distance_stencil.launches}
+
+
+def zero_launch_counts() -> None:
+    import torch
+
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.ops.qp import newton_solve
+
+    torch.cuda.synchronize()
+    newton_solve.launches = 0
+    pseudo_distance_stencil.launches = 0
+
+
+def check_record(record: dict, what: str) -> None:
+    import numpy as np
+
+    for k, v in record.items():
+        check(v.dtype.kind in "biu" or bool(np.isfinite(v).all()), f"non-finite {k} in {what}")
+
+
+def single_agent_resets(record: dict) -> int:
+    """Agents that the testing-mode done logic reset alone: flagged
+    (collision or goal) in an env that did not end."""
+    import numpy as np
+
+    flagged = (record["is_collision_with_agents"] | record["is_collision_with_lanelets"]
+               | record["is_reach_goal"])
+    return int((flagged & ~np.asarray(record["done"], bool)[..., None]).sum())
+
+
+def expected_metric_keys(record: dict) -> set:
+    """The keys `main_testing` / `main_eval` of the JAX package give: the
+    basic metrics (with the QP rates where the record has the filter's),
+    collisions per 100 m and the three timings."""
+    from sigmarl_tpu_torch.eval import metrics as M
+
+    return set(M.basic_metrics(record)) | {"collisions_per_100m", "timing_steps_per_s",
+                                          "timing_wall_time_s", "timing_time_per_step_ms"}
+
+
+def testing_phase(model_dir: str, smi: str) -> dict:
+    """`main_testing`'s function on the filtered-training phase's model
+    directory (cpm_entire, N=15, the 3x256 policy), deterministic, B=32 (its
+    `--num_envs` default), 128 recorded steps: finite records, single-agent
+    resets counted, the JAX function's metric keys, no kernel launched."""
+    from sigmarl_tpu_torch import main_testing
+
+    zero_launch_counts()
+    result, record, env = main_testing.test_model(model_dir, TESTING_STEPS, 32, 0, True, "cuda")
+    launches = launch_counts()
+    check_record(record, "the testing rollout")
+    check(record["pos"].shape == (TESTING_STEPS, 32, 15, 2), f"record shape {record['pos'].shape}")
+    check(set(result) == expected_metric_keys(record), f"testing metrics {sorted(result)}")
+    singles = single_agent_resets(record)
+    check(singles > 0 and env.reset_steps > 0, "no single-agent reset in the testing rollout")
+    check(launches == {"qp_newton": 0, "boundary_stencil": 0}, f"testing launched {launches}")
+    share = env.reset_steps / TESTING_STEPS
+    print(f"testing (main_testing, cpm_entire, N=15, B=32, deterministic): {TESTING_STEPS} steps, "
+          f"{result['timing_steps_per_s']:.1f} env-steps/s, the reset ran in {env.reset_steps} "
+          f"steps ({share:.3f}), {singles} single-agent resets, collision rate "
+          f"{result['collision_rate_total']:.4f}, launches {launches}; on {smi}")
+    return dict(launches=launches, steps_per_s=result["timing_steps_per_s"], reset_share=share,
+                single_agent_resets=singles)
+
+
+def clf_qp_capture(cbf, state):
+    """K1's inputs at a CLF-filtered state (the nominal action does not
+    depend on the RL action)."""
+    import torch
+
+    B, N = state.pos.shape[:2]
+    return qp_capture(cbf, state, torch.zeros((B, N, 2), device=state.pos.device))
+
+
+def near_zero_clf_rows(qp_args, qp_static, cbf, state, seed: int):
+    """K1's inputs at `state` with a third of the agents' CLF errors set
+    near zero (`utils/card_checks.py::near_zero_clf_rows`: rows of norm at
+    most 1e-6, where K1's fast division leaves its ranges)."""
+    import torch
+
+    from sigmarl_tpu_torch.safety.qp import kernel_inputs
+    from sigmarl_tpu_torch.utils import card_checks
+
+    B, N = state.pos.shape[:2]
+    cons, u_nom, _, _ = cbf.assemble(state, torch.zeros((B, N, 2), device=state.pos.device))
+    cons = card_checks.near_zero_clf_rows(cons, cbf.cfg.lam_clf, seed)
+    return kernel_inputs(cons, u_nom, (cbf.a_min, cbf.rate_min), (cbf.a_max, cbf.rate_max),
+                         state.cbf_u_prev, cbf.cfg.newton_ws_cap), qp_static
+
+
+def check_eval_run(result: dict, record: dict, env, launches: dict, steps: int, what: str,
+                   smi: str) -> dict:
+    """The checks of a CBF-filtered evaluation rollout: finite records, the
+    JAX function's metric keys, K1 and K2 once per step, every solve finite
+    (solved share 1.0), a finite QP infeasibility rate. Returns its
+    numbers."""
+    check_record(record, what)
+    solved = float(record["cbf_solved"].mean())
+    check(set(result) == expected_metric_keys(record), f"{what} metrics {sorted(result)}")
+    check(launches == {"qp_newton": steps, "boundary_stencil": steps},
+          f"{what} launched {launches} in {steps} steps")
+    check(solved == 1.0, f"{what} solved share {solved}")
+    check(math.isfinite(result["qp_infeasibility_rate"]), f"{what} infeasibility rate")
+    share = env.reset_steps / steps
+    print(f"{what}: {steps} steps, {result['timing_steps_per_s']:.1f} env-steps/s, launches "
+          f"{launches}, solved share {solved:.6f}, QP infeasibility rate "
+          f"{result['qp_infeasibility_rate']:.4f}, the reset ran in {env.reset_steps} steps "
+          f"({share:.3f}), {single_agent_resets(record)} single-agent resets; on {smi}")
+    return dict(launches=launches, steps_per_s=result["timing_steps_per_s"], reset_share=share,
+                solved_share=solved, qp_infeasibility_rate=result["qp_infeasibility_rate"])
+
+
+def eval_rollout(env, cbf, steps: int, speed: float, what: str, smi: str) -> dict:
+    """A recorded rollout through `cbf` with (speed, 0) nominal actions (the
+    eval layer's `rollout`, as `main_eval` and the ITSC'25 sweep drive it),
+    the launch counts set to 0 just before it; checked by
+    `check_eval_run`."""
+    import torch
+
+    from sigmarl_tpu_torch.eval import metrics as M
+    from sigmarl_tpu_torch.eval.rollout import constant_speed_policy, rollout
+
+    gen = torch.Generator(device=env.device).manual_seed(0)
+    zero_launch_counts()
+    record, timings = rollout(env, constant_speed_policy(env, speed), steps, gen, cbf=cbf)
+    launches = launch_counts()
+    result = M.basic_metrics(record)
+    result["collisions_per_100m"] = M.collisions_per_100m(record)
+    result.update({f"timing_{k}": v for k, v in timings.items()})
+    return check_eval_run(result, record, env, launches, steps, what, smi)
+
+
+def filtered_state(env, cbf, steps: int = 4):
+    """A live state of `env` after a reset and `steps` filtered steps with
+    (0.5, 0) nominal actions, for capturing the kernels' inputs."""
+    import torch
+
+    from sigmarl_tpu_torch import cbf_filtered_step
+
+    gen = torch.Generator(device=env.device).manual_seed(1)
+    act = torch.zeros((env.batch_dim, env.n_agents, 2), device=env.device)
+    act[..., 0] = 0.5
+    state, _ = env.reset(generator=gen)
+    for _ in range(steps):
+        state, *_ = cbf_filtered_step(env, cbf, state, act, generator=gen)
+    return state
+
+
+def cbf_eval_phase(smi: str) -> dict:
+    """`main_eval`'s function at its defaults (cpm_mixed, N=4, B=32, CLF
+    nominal, windowed flag set, default 2+15 budget), 128 of its 600 steps,
+    centralized and then `--decentralized`; then the windowed stencil
+    (`windowed_eval_run`). Returns each run's numbers, K1's CLF input
+    (near-zero rows injected for the check, as captured for the timing),
+    and the window-selection K2 input."""
+    from sigmarl_tpu_torch import main_eval
+
+    out = {}
+    for name, flags in (("centralized", []), ("decentralized", ["--decentralized"])):
+        args = main_eval.parse_args(["--max_steps", str(EVAL_STEPS), "--device", "cuda"] + flags)
+        zero_launch_counts()
+        result, record, env, cbf = main_eval.evaluate(args)
+        launches = launch_counts()
+        check(cbf.cfg.nom_controller_type == "clf" and cbf.cfg.use_windowed_pseudo_distance
+              and env.cfg.is_testing_mode and cbf.decentralized == (name == "decentralized"),
+              "not main_eval's defaults")
+        out[name] = check_eval_run(result, record, env, launches, EVAL_STEPS,
+                                   f"CBF evaluation ({name}, main_eval defaults)", smi)
+        if name == "centralized":
+            state = filtered_state(env, cbf)
+            out["qp"] = clf_qp_capture(cbf, state)
+            out["qp_near_zero"] = near_zero_clf_rows(*out["qp"], cbf, state, seed=4)
+    out["windowed"] = windowed_eval_run(smi)
+    return out
+
+
+def windowed_eval_run(smi: str) -> dict:
+    """The windowed stencil, which JAX and the port take only with
+    pd_topk_chunks = 0 (no CLI sets it): `main_eval`'s env and filter with
+    that count, through the eval layer's `rollout`, 32 steps, K1 and K2 once
+    per step. Returns the numbers and K2's window-selection input at a
+    state of this env."""
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, Parameters, make_env
+    from sigmarl_tpu_torch.safety.circles import circle_centers_world
+
+    p = Parameters(scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=32, dt=0.1,
+                   max_steps=WINDOW_STEPS, is_testing_mode=True, is_obs_noise=False,
+                   is_use_mtv_distance=False, nom_controller_type="clf", device="cuda")
+    env = make_env(p)
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=4, dt=0.1, nom_controller_type="clf", pd_topk_chunks=0,
+                                    use_windowed_pseudo_distance=True),
+                          env.cfg, env.tables, device=env.device)
+    res = eval_rollout(env, cbf, WINDOW_STEPS, 0.5,
+                       "windowed CBF evaluation (cpm_mixed, N=4, B=32, pd_topk_chunks=0)", smi)
+    state = filtered_state(env, cbf)
+    centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+    q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id, state.idx_left, state.idx_right)
+    check(cl is not None and cl.shape[1] == 6, "no window selection")
+    return dict(res, pd=(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr))
+
+
+def itsc25_phase(smi: str) -> dict:
+    """The ITSC'25 filter sweep (`sigmarl_tpu/eval/papers.py:215-262`:
+    cpm_mixed, one agent, B=32, testing mode, the CLF controller, 0.6 m/s)
+    for C = 1..5 circles, 32 of the paper's 600 steps each: K1 at P = 0 and
+    K2 once per step. Returns per C the numbers and the kernels' inputs."""
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, Parameters, make_env
+    from sigmarl_tpu_torch.safety.circles import circle_centers_world
+
+    out = {}
+    for C in (1, 2, 3, 4, 5):
+        p = Parameters(scenario_type="cpm_mixed", n_agents=1, num_vmas_envs=32, dt=0.1,
+                       max_steps=ITSC_STEPS, is_use_mtv_distance=False, is_obs_noise=False,
+                       is_testing_mode=True, n_circles_approximate_vehicle=C, device="cuda")
+        env = make_env(p)
+        cbf = CBFSafetyFilter(CBFConfig(n_agents=1, n_circles=C, dt=0.1, nom_controller_type="clf"),
+                              env.cfg, env.tables, device=env.device)
+        res = eval_rollout(env, cbf, ITSC_STEPS, 0.6, f"ITSC'25 sweep, C={C}", smi)
+        state = filtered_state(env, cbf)
+        qp = clf_qp_capture(cbf, state)
+        check(qp[0][1].shape[-1] == 0 and qp[0][0].shape[-1] == 2 * C + 2,
+              f"C={C}: K1's input is not one agent with 2C+2 rows")
+        centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+        q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id)
+        out[C] = dict(res, qp=qp, qp_near_zero=near_zero_clf_rows(*qp, cbf, state, seed=C),
+                      pd=(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr))
+    return out
+
+
+def wide_clf_setup():
+    """The env and filter of the wide CLF evaluation: cpm_entire, N=15,
+    B=1024, testing mode, the CLF controller, centralized, 3+5 budget."""
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, Parameters, make_env
+
+    p = Parameters(scenario_type="cpm_entire", n_agents=N_AGENTS, num_vmas_envs=BATCH, dt=0.1,
+                   max_steps=1_000_000, is_use_mtv_distance=False, is_obs_noise=False,
+                   is_testing_mode=True, is_using_cbf_testing=True, nom_controller_type="clf",
+                   device="cuda")
+    env = make_env(p)
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=N_AGENTS, nom_controller_type="clf", newton_iters=5,
+                                    newton_soft_iters=3), env.cfg, env.tables, device=env.device)
+    return env, cbf
+
+
+def wide_clf_phase(smi: str) -> dict:
+    """CLF-filtered testing at the main path's width (`wide_clf_setup`), 16
+    steps. Returns the numbers and K1's input."""
+    env, cbf = wide_clf_setup()
+    res = eval_rollout(env, cbf, WIDE_CLF_STEPS, 0.5,
+                       "wide CLF evaluation (cpm_entire, N=15, B=1024, 3+5)", smi)
+    state = filtered_state(env, cbf)
+    qp = clf_qp_capture(cbf, state)
+    return dict(res, qp=qp, qp_near_zero=near_zero_clf_rows(*qp, cbf, state, seed=15))
+
+
+def at25_phase(smi: str) -> dict:
+    """The scripted AT25 run (`eval/at25.py::run_model(None, n_agents=15)`)
+    from `default_poses` through `reset_predefined`, B=1, 256 of its 18,000
+    steps: the event counts per 100 m and the distance driven, finite."""
+    from sigmarl_tpu_torch.eval import at25
+
+    zero_launch_counts()
+    res = at25.run_model(None, n_agents=N_AGENTS, max_steps=AT25_STEPS, device="cuda")
+    launches = launch_counts()
+    keys = ("agent_collision_events_per_100m", "boundary_collision_events_per_100m",
+            "distance_driven_m")
+    check(all(math.isfinite(res[k]) and res[k] >= 0 for k in keys) and res["distance_driven_m"] > 0,
+          f"AT25 events {[res.get(k) for k in keys]}")
+    print(f"AT25 (scripted, N=15, B=1, {AT25_STEPS} steps): agent events "
+          f"{res['agent_collision_events_per_100m']:.4f} and boundary events "
+          f"{res['boundary_collision_events_per_100m']:.4f} per 100 m over "
+          f"{res['distance_driven_m']:.2f} m, {res['timing_steps_per_s']:.1f} env-steps/s, "
+          f"launches {launches}; on {smi}")
+    return dict(res, launches=launches)
+
+
+def eval_kernel_checks(evals, itsc, wide) -> dict:
+    """K1 and K2 against their plain versions on the evaluation path's
+    inputs: K1 with active CLF rows (near-zero ones included) at N=4 and
+    N=15 and at one agent (P = 0) for C = 1, 3 and 5, controls after 0 and 1
+    iterations bit for bit, F as in phase 4; K2 at C = 1 and 5 and with the
+    window selection, bit for bit. Returns the largest differences."""
     import torch
 
     from sigmarl_tpu_torch.ops.boundary import (
         pseudo_distance_stencil, pseudo_distance_stencil_reference,
     )
-    from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference, solve_occupancy
-    from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, chunk_rows, counting_segments
 
-    singles, pairs, u0 = qp_args[:3]
-    B, d = u0.shape
-    N, P = d // 2, qp_args[5].shape[0]
-    Ks, Kp = singles.shape[-1] // N, pairs.shape[-1] // P
+    errs = {}
+    for label, (args, static), budgets in (
+        (" CLF N=4", evals["qp_near_zero"], ((30, 0), (15, 2))),
+        (" CLF N=15 B=1024", wide["qp_near_zero"], ((30, 0), (5, 3))),
+        *((f" P=0 C={C}", itsc[C]["qp_near_zero"], ((30, 0), (15, 2))) for C in (1, 3, 5)),
+    ):
+        errs["qp_newton" + label] = check_qp(args, static, label, budgets, atol=0.0)
+    for label, args in (("C=1", itsc[1]["pd"]), ("C=5", itsc[5]["pd"]),
+                        ("window", evals["windowed"]["pd"])):
+        out = pseudo_distance_stencil(*args)
+        ref = pseudo_distance_stencil_reference(*args)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        print(f"K2 {label} ({args[0].shape[1]} queries, {args[4].shape[1]} chunks): "
+              f"max |d_kernel - d_plain| = {err:.3e} (bit for bit)")
+        check(err == 0.0 and all(bool(torch.isfinite(a).all()) for a in out),
+              f"K2 {label} differs by {err}")
+        errs["boundary_stencil " + label] = err
+    return errs
+
+
+def clf_small_check(dev) -> None:
+    """One testing-mode, CLF-filtered, fp16-parity step (cpm_mixed, N=4,
+    B=8) on the card against the CPU from the same state and draws, to the
+    tolerances of `utils/card_checks.py::clf_step_card_vs_cpu` (which the
+    card test shares)."""
+    from sigmarl_tpu_torch.utils.card_checks import clf_step_card_vs_cpu
+
+    checks = clf_step_card_vs_cpu(dev)
+    print("testing-mode CLF fp16-parity step (N=4, B=8), card vs CPU: " + "; ".join(
+        f"{c.what} {c.value:.3e} (<= {c.limit:g})" for c in checks))
+    for c in checks:
+        check(c.ok, f"card vs CPU: {c.what} {c.value} above {c.limit}")
+
+
+def kernel_report(qp_args, qp_static, pd_args, launches, errs, paths) -> list:
+    import torch
+
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference, solve_occupancy
+
+    N, Ks, Kp, P, B = qp_sizes(qp_args)
+    d = 2 * N
     budget = dict(soft_iters=3)
     k1 = lambda: newton_solve(*qp_args, *qp_static, 5, **budget)  # noqa: E731
     k1_plain = lambda: newton_solve_reference(*qp_args, *qp_static, 5, **budget)  # noqa: E731
     k1_bytes = sum(t.numel() * t.element_size() for t in qp_args) + (d + 1) * 4 * B
     k1_bound, k1_by = bound_ms(B * qp_flops(N, Ks, Kp, P, 5, 3), k1_bytes)
 
-    q, pid, lseg, rseg, cl, cr = pd_args
-    R, Q = q.shape[:2]
     k2 = lambda: pseudo_distance_stencil(*pd_args)  # noqa: E731
-    k2_plain = lambda: pseudo_distance_stencil_reference(*pd_args)  # noqa: E731
-    # What this input needs: every selected segment tested once per row and
-    # side, and the exact evaluation for all queries of a row only on the
-    # segments that count for at least one of them.
-    n_seg = cl.shape[1] * PD_CHUNK
-    counting = sum(int(counting_segments(q, chunk_rows(seg, pid, ch)).sum())
-                   for seg, ch in ((lseg, cl), (rseg, cr)))
-    k2_flops = 2 * R * n_seg * _TEST_OPS + counting * Q * _SEG_OPS + 2 * R * Q
-    k2_bytes = sum(t.numel() * t.element_size() for t in (q, pid, lseg, rseg, cl, cr)) + 2 * R * Q * 4
-    k2_bound, k2_by = bound_ms(k2_flops, k2_bytes)
-    k2_bound_all, k2_by_all = bound_ms(2 * R * Q * (n_seg * _SEG_OPS + 1), k2_bytes)
+    k2_row = k2_timing(pd_args)
+    q, pid, lseg, rseg, cl, cr = pd_args
+    R = q.shape[0]
+    n_seg, counting = k2_row.pop("segments"), k2_row.pop("counting")
+    k2_bound_all, k2_by_all = k2_row.pop("bound_all")
 
     rows = [
         dict(name="qp_newton", route="cuda", source="sigmarl_tpu_torch/csrc/qp_newton.cu",
@@ -916,10 +1314,9 @@ def kernel_report(qp_args, qp_static, pd_args, launches, errs, paths) -> list:
              source="sigmarl_tpu_torch/csrc/boundary_stencil.cu",
              replaces="sigmarl_tpu/ops/boundary_pallas.py:89",
              launches=launches["boundary_stencil"], max_abs_err=errs["boundary_stencil"],
-             **cuda_ms_windows(k2, reps=200, queued=True),
-             back_to_back_ms=cuda_ms_windows(k2, reps=200)["ms"],
-             plain_ms=cuda_ms(k2_plain, reps=20), bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None, launches_by_path=paths["boundary_stencil"]),
+             **k2_row, back_to_back_ms=cuda_ms_windows(k2, reps=200)["ms"],
+             library_ms=None, launches_by_path=paths["boundary_stencil"],
+             variants=paths["k2"]),
     ]
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms queued behind a spin, the card's time alone "
@@ -1000,7 +1397,14 @@ def main() -> int:
         ppo_update_check(dev)
         xpmarl = xpmarl_training_phase(dev, smi, wd)
         wide = wide_xpmarl_phase(dev, smi, wd)
+        testing = testing_phase(filtered["model_dir"], smi)
     xpmarl_small_check(dev)
+    evals = cbf_eval_phase(smi)
+    itsc = itsc25_phase(smi)
+    wide_clf = wide_clf_phase(smi)
+    at25_run = at25_phase(smi)
+    eval_errs = eval_kernel_checks(evals, itsc, wide_clf)
+    clf_small_check(dev)
 
     paths = {k: {"main": launches[k], "grouped": grouped["launches"][k],
                  "cbf_informed_training_per_iteration": [n[k] for n in informed],
@@ -1009,10 +1413,46 @@ def main() -> int:
                  "xpmarl_learned_priority": xpmarl["learned priority"][k],
                  "xpmarl_random_priority": xpmarl["random priority"][k],
                  "opponent_modeling": xpmarl["opponent modeling"][k],
-                 "xpmarl_cbf_filtered_wide": wide[k]}
+                 "xpmarl_cbf_filtered_wide": wide[k],
+                 "testing": testing["launches"][k],
+                 "cbf_eval_centralized": evals["centralized"]["launches"][k],
+                 "cbf_eval_decentralized": evals["decentralized"]["launches"][k],
+                 "cbf_eval_windowed": evals["windowed"]["launches"][k],
+                 **{f"itsc25_c{C}": itsc[C]["launches"][k] for C in itsc},
+                 "clf_wide": wide_clf["launches"][k],
+                 "at25": at25_run["launches"][k]}
              for k in launches}
     paths["k1"] = [dict(input="grouped", **grouped["k1"]),
                    dict(input="filtered training", **filtered["k1"])]
+    # Each variant's max_abs_err is the largest control difference on its
+    # captured input with near-zero CLF rows injected (K1), or the largest
+    # distance difference on its captured input (K2).
+    k1_eval = (
+        ("CLF rows, cpm_entire N=15 B=1024 (wide CLF evaluation)", wide_clf["qp"],
+         wide_clf["launches"], 5, 3, " CLF N=15 B=1024"),
+        ("CLF rows, cpm_mixed N=4 B=32 (main_eval defaults)", evals["qp"],
+         evals["centralized"]["launches"], 15, 2, " CLF N=4"),
+        *((f"P=0, N=1 B=32 C={C} (ITSC'25 sweep)", itsc[C]["qp"], itsc[C]["launches"], 15, 2,
+           f" P=0 C={C}") for C in (1, 3, 5)),
+    )
+    for what, qp, n, n_iters, soft, key in k1_eval:
+        r = dict(input=what, launches=n["qp_newton"], max_abs_err=eval_errs["qp_newton" + key],
+                 **k1_timing(*qp, n_iters, soft))
+        print_k1_timing(what, r, smi)
+        paths["k1"].append(r)
+    paths["k2"] = []
+    for what, run, key in (("C=1, N=1 B=32 (ITSC'25 sweep)", itsc[1], "C=1"),
+                           ("C=5, N=1 B=32 (ITSC'25 sweep)", itsc[5], "C=5"),
+                           ("window selection, N=4 B=32 (pd_topk_chunks=0)", evals["windowed"],
+                            "window")):
+        r = k2_timing(run["pd"])
+        r.pop("bound_all")
+        r = dict(input=what, launches=run["launches"]["boundary_stencil"],
+                 max_abs_err=eval_errs["boundary_stencil " + key], **r)
+        print(f"K2 {what}: {r['ms']:.4f} ms queued ({r['ms_min']:.4f} to {r['ms_max']:.4f}), "
+              f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain {r['plain_ms']:.3f} ms, "
+              f"{r['launches']} launches on its path; on {smi}")
+        paths["k2"].append(r)
     rows = kernel_report(qp_args, qp_static, pd_args, launches, errs, paths)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

@@ -2,10 +2,13 @@
 """Where the solve kernel K1 (`csrc/qp_newton.cu`) spends its time, phase by
 phase, on the card.
 
-    python3 scripts/profile_qp_phases.py [--source FILE ...]
+    python3 scripts/profile_qp_phases.py [--source FILE ...] [--input {main,clf}]
 
 Sets up the main path as chip_smoke.py does (cpm_entire, N=15, B=1024,
-centralized filter), warms it up and captures K1's input. Then, for each
+centralized filter), warms it up and captures K1's input; with `--input
+clf`, the same width in testing mode with the CLF nominal controller (its
+two CLF rows per agent active), as chip_smoke.py's wide CLF evaluation
+captures it, 4 filtered steps after a reset. Then, for each
 kernel source (default: this checkout's), it builds an instrumented copy
 in `sigmarl_tpu_torch/_build/`: every function of the source that holds
 phase markers (comment lines `// ---- <phase> ...`, each placed right
@@ -162,6 +165,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", action="append", default=None,
                     help="kernel source to instrument (repeatable; default csrc/qp_newton.cu)")
+    ap.add_argument("--input", choices=["main", "clf"], default="main",
+                    help="K1's input: the main path's, or the CLF-filtered testing run's")
     args = ap.parse_args()
     import torch
 
@@ -174,9 +179,13 @@ def main() -> int:
 
     sources = args.source or [os.path.join(b.CSRC, "qp_newton.cu")]
     smi = cs.nvidia_smi_line()
-    env, cbf, policy, gen, state, obs = cs.setup_main_path("cuda")
-    state, obs, _, _ = cs.rollout(env, cbf, policy, gen, state, obs, cs.WARMUP_STEPS)
-    qp_args, qp_static, _ = cs.capture_kernel_inputs(env, cbf, policy, gen, state, obs)
+    if args.input == "main":
+        env, cbf, policy, gen, state, obs = cs.setup_main_path("cuda")
+        state, obs, _, _ = cs.rollout(env, cbf, policy, gen, state, obs, cs.WARMUP_STEPS)
+        qp_args, qp_static, _ = cs.capture_kernel_inputs(env, cbf, policy, gen, state, obs)
+    else:
+        env, cbf = cs.wide_clf_setup()
+        qp_args, qp_static = cs.clf_qp_capture(cbf, cs.filtered_state(env, cbf))
     B = qp_args[2].shape[0]
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -237,7 +246,7 @@ def main() -> int:
         results.append(dict(source=os.path.relpath(src, ROOT), **ms, scaling_ms=scaling,
                             cycles_per_block=total, cycles_alone=cyc1[0], phases=phases))
     print(smi)
-    print(json.dumps(dict(device=smi, batch=B, budget="3+5", results=results)))
+    print(json.dumps(dict(device=smi, input=args.input, batch=B, budget="3+5", results=results)))
     return 0
 
 

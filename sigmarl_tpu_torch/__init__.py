@@ -1,11 +1,15 @@
 """sigmarl_tpu_torch — the PyTorch/CUDA port of `sigmarl_tpu`.
 
-A second package beside the JAX one: the road-traffic simulator, the
-CBF-QP safety filter (centralized, decentralized, grouped or margins-only)
-and MAPPO training (`rl/`, `python -m sigmarl_tpu_torch.main_training`;
-plain, CBF-filtered or CBF-informed rollouts, XP-MARL priorities, opponent
-modeling, the learned-CBF module) on tensors, with the two hot kernels written in CUDA for Hopper (`ops/qp.py`,
-`ops/boundary.py`, sources under `csrc/`). Entry points run
+A second package beside the JAX one: the road-traffic simulator (CPM and
+OSM maps, training and testing mode), the CBF-QP safety filter
+(centralized, decentralized, grouped or margins-only; RL or CLF nominal
+controller), MAPPO training (`rl/`, `python -m
+sigmarl_tpu_torch.main_training`; plain, CBF-filtered or CBF-informed
+rollouts, XP-MARL priorities, opponent modeling, the learned-CBF module)
+and testing and evaluation (`eval/`, `python -m
+sigmarl_tpu_torch.main_testing`, `.main_eval`, `.main_eval_parallel`) on
+tensors, with the two hot kernels written in CUDA for Hopper
+(`ops/qp.py`, `ops/boundary.py`, sources under `csrc/`). Entry points run
 on `cuda` unless the caller passes `device="cpu"`, where every kernel runs
 its plain PyTorch version. The package imports nothing of JAX.
 """

@@ -1,8 +1,8 @@
 """Scenario registry, vehicle constants, and thresholds.
 
 The port's own copy of the JAX package's constants: the scenario registry
-is read from `maps/scenarios.json` (the two CPM-lab scenarios this port
-can load), vehicle constants describe the CPM-lab muCar.
+is read from `maps/scenarios.json` (the CPM-lab scenarios and the OSM
+maps), vehicle constants describe the CPM-lab muCar.
 """
 
 from __future__ import annotations
@@ -14,9 +14,10 @@ import os
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 with open(os.path.join(_HERE, "maps", "scenarios.json")) as _f:
-    #: Scenario registry. Keys: scenario type ("cpm_entire", "cpm_mixed").
-    #: Values include "map_path", "n_agents", "lane_width" and the world
-    #: bounds.
+    #: Scenario registry. Keys: scenario type (e.g. "cpm_entire",
+    #: "cpm_mixed", "intersection_1"). Values include "map_path",
+    #: "n_agents", "lane_width", "scale", and for OSM maps
+    #: "reference_paths_ids" and "neighboring_lanelet_ids".
     SCENARIOS: dict = json.load(_f)
 
 #: Vehicle constants of the CPM-lab muCar.

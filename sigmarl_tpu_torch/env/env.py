@@ -8,26 +8,32 @@ struct-of-tensors state `[B, N, ...]`, with auto-reset folded in:
 3. rewards (use the previous step's recorded pose and short-term window;
    under `debug_numerics` a non-finite reward raises)
 4. state-buffer push, short-term path refresh
-5. done logic, masked auto-reset of the done envs
+5. done logic (in testing mode an agent that collides or reaches its
+   entry or exit is reset alone), masked auto-reset
 6. observation of the post-reset state
+
+`reset_predefined` and `reset_from_poses` start every env from given
+poses instead of random spawns.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from sigmarl_tpu_torch.config import Parameters
+from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.core.dynamics import BicycleParams, command_step
 from sigmarl_tpu_torch.device import resolve_device
 from sigmarl_tpu_torch.env.map_tables import MapTables, build_map_tables
 from sigmarl_tpu_torch.env.observations import observe_with_history
 from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, initial_state
 from sigmarl_tpu_torch.env.rewards import compute_rewards
-from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state
+from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state, zero_state
 from sigmarl_tpu_torch.env.updates import (
     latest_state_record,
     push_state_buffer,
@@ -52,6 +58,8 @@ class RoadTrafficEnv:
         S = cfg.n_points_short_term
         w = np.linspace(1.0, 0.2, S, dtype=np.float32)
         self.weighting_ref = torch.as_tensor(w / w.sum(), device=device)
+        # Steps in which the masked reset ran (counted on the host).
+        self.reset_steps = 0
 
     @property
     def obs_dim(self) -> int:
@@ -148,6 +156,7 @@ class RoadTrafficEnv:
         # The host reads whether any env resets (one device sync per step)
         # and runs the masked full-width reset only then.
         if bool(reset_mask.any()):
+            self.reset_steps += 1
             if reset_draws is None:
                 reset_draws = ResetDraws.sample(cfg, generator, self.device)
             state = apply_reset(cfg, tables, state, reset_mask, reset_draws)
@@ -158,11 +167,77 @@ class RoadTrafficEnv:
         )
         return state, obs, reward, done, info
 
-    def reset_predefined(self, *args, **kwargs):
-        raise NotImplementedError("reset_predefined is not ported to the PyTorch environment")
+    def reset_predefined(
+        self,
+        init_state: Tensor,
+        path_idx: Tensor,
+        generator: torch.Generator | None = None,
+        obs_noise: Tensor | None = None,
+    ) -> Tuple[WorldState, Tensor]:
+        """Reset every env from predefined poses and reference paths (the
+        `predefined_ref_path_idx` / `init_state` parameters): init_state
+        [N, 3] rows (x, y, rot) and path_idx [N], the same in every env;
+        speed and steering zero. Observation noise as in `reset`."""
+        cfg, tables = self.cfg, self.tables
+        B, N = cfg.batch_dim, cfg.n_agents
+        init_state = torch.as_tensor(init_state, dtype=torch.float32, device=self.device)
+        pid = torch.as_tensor(path_idx, device=self.device).to(torch.int32).expand(B, N)
+        state = replace_state(
+            zero_state(cfg, self.device),
+            pos=init_state[None, :, 0:2].expand(B, N, 2).contiguous(),
+            rot=init_state[None, :, 2].expand(B, N).contiguous(),
+            path_id=pid.contiguous(),
+            scenario_id=tables.group_id[pid[0, 0].long()].expand(B, N).contiguous(),
+        )
+        return self._start_from_poses(state, generator, obs_noise)
 
-    def reset_from_poses(self, *args, **kwargs):
-        raise NotImplementedError("reset_from_poses is not ported to the PyTorch environment")
+    def reset_from_poses(
+        self,
+        pos: Tensor,
+        rot: Tensor,
+        generator: torch.Generator | None = None,
+        obs_noise: Tensor | None = None,
+    ) -> Tuple[WorldState, Tensor]:
+        """Reset from externally measured poses (experiment_type "lab"):
+        pos [B, N, 2], rot [B, N]. Each agent takes the reference path that
+        minimizes (100 * perpendicular distance)^2 + |relative yaw at the
+        closest point| (the first such path on a tie), speed and steering
+        zero. Observation noise as in `reset`."""
+        cfg, tables = self.cfg, self.tables
+        B, N = cfg.batch_dim, cfg.n_agents
+        K, L = tables.center_line_yaw.shape
+        # Every agent against every candidate path: [B, N, 1, 2] vs [K, P, 2].
+        d, idx = G.perpendicular_distances(
+            pos[:, :, None, :], tables.long_term[None, None],
+            tables.n_points_long_term[None, None].expand(B, N, K),
+        )  # [B, N, K]
+        yaw_at = torch.gather(
+            tables.center_line_yaw[None, None].expand(B, N, K, L), -1,
+            torch.clamp(idx.long() - 1, min=0)[..., None],
+        )[..., 0]
+        rel_yaw = torch.abs(torch.remainder(yaw_at - rot[..., None] + math.pi, 2 * math.pi) - math.pi)
+        pid = torch.argmin((d * 100.0) ** 2 + rel_yaw, dim=-1)  # first index on ties
+        state = replace_state(
+            zero_state(cfg, self.device),
+            pos=pos,
+            rot=rot,
+            path_id=pid.to(torch.int32),
+            point_id=torch.gather(idx, -1, pid[..., None])[..., 0].to(torch.int32),
+            scenario_id=torch.zeros((B, N), dtype=torch.int32, device=self.device),
+        )
+        return self._start_from_poses(state, generator, obs_noise)
+
+    def _start_from_poses(self, state: WorldState, generator, obs_noise):
+        """Derived state and the first observation of a state whose poses
+        and paths are set."""
+        cfg, tables = self.cfg, self.tables
+        state = update_geometry(cfg, tables, state)
+        state = update_short_term_paths(cfg, tables, state, at_reset=True)
+        state = push_state_buffer(state)
+        obs, state = observe_with_history(
+            cfg, tables, state, full_reset=True, noise=obs_noise, generator=generator
+        )
+        return state, obs
 
     def _done_and_reset_mask(self, state: WorldState) -> Tuple[Tensor, Tensor]:
         """Per-env done flag and the agent reset mask."""
@@ -176,6 +251,15 @@ class RoadTrafficEnv:
         coll_ag = state.coll_agents.reshape(B, -1).any(-1)
         coll_ll = state.coll_lanelets.any(-1)
         max_steps = state.step == (cfg.max_steps - 1)
+        if cfg.is_testing_mode:
+            # An agent that collides or reaches its entry or exit is reset
+            # alone; the episode ends only at max_steps or the fixed period.
+            done = max_steps | fixed
+            single = (
+                state.coll_agents.any(-1) | state.coll_lanelets | state.coll_entry | state.coll_exit
+            )
+            reset_mask = (single & ~done[:, None]) | done[:, None]
+            return done, reset_mask
         done = max_steps | coll_ag | coll_ll | fixed
         if cfg.scenario_type != "cpm_entire":
             # Recycle agents that crossed their entry or exit segment (non-loop
@@ -195,11 +279,6 @@ REWARD_METHODS = (
 def _check_ported(p: Parameters) -> None:
     unported = {
         "the challenging initial-state buffer": p.is_challenging_initial_state_buffer,
-        "testing-mode resets": p.is_testing_mode,
-        "reset_predefined (predefined_ref_path_idx / init_state)": (
-            p.predefined_ref_path_idx is not None or p.init_state is not None
-        ),
-        "experiment_type 'lab' (reset_from_poses)": p.experiment_type != "simulation",
         f"the {p.rew_method!r} reward method": p.rew_method not in REWARD_METHODS,
     }
     for what, on in unported.items():
@@ -215,7 +294,7 @@ def make_env(parameters: Parameters, device: str | torch.device | None = None) -
     if parameters.debug_numerics:
         enable_debug_numerics()
     cfg = EnvConfig.from_parameters(parameters)
-    map_data = load_map(parameters.scenario_type)
+    map_data = load_map(parameters.scenario_type, lane_width=parameters.lane_width)
     if parameters.scenario_type == "cpm_mixed":
         table_paths = (
             map_data.reference_paths_intersection

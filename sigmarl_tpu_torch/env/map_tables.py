@@ -45,6 +45,7 @@ class MapTables:
     entry: Tensor  # [K, 2, 2] entry segment (first boundary points)
     exit: Tensor  # [K, 2, 2] exit segment (last boundary points)
     is_loop: Tensor  # [K] bool
+    group_id: Tensor  # [K] int32 — each path's group
     group_mask: Tensor  # [G, K] bool — valid paths per group id
     lanelet_centers: Tensor  # [n_lanelets, Lc, 2]
     n_lanelet_center_points: Tensor  # [n_lanelets] int32
@@ -229,6 +230,7 @@ def build_map_tables(
         entry=t(entry),
         exit=t(exit_),
         is_loop=t(is_loop),
+        group_id=t(gid),
         group_mask=t(group_mask),
         lanelet_centers=t(lanelet_centers.astype(np.float32)),
         n_lanelet_center_points=t(n_lc),

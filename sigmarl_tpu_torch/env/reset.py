@@ -85,9 +85,15 @@ def _sample_candidate_paths(tables: MapTables, path_u: Tensor, scenario_id: Tens
 
 
 def _candidate_point_ids(cfg: EnvConfig, point_u: Tensor, n_points: Tensor) -> Tensor:
-    """Spawn-point index per candidate: uniform in [3, n_points // 2)."""
+    """Spawn-point index per candidate [B, N, T]: uniform in [3, n_points //
+    2) in training; in testing mode in a window that grows with the retry
+    index k, [3, 3 + (k+1)(k+2)/2), capped at n_points // 2."""
     start = 3
-    end = torch.clamp(torch.div(n_points, 2, rounding_mode="floor"), min=start + 1)
+    end = torch.div(n_points, 2, rounding_mode="floor")
+    if cfg.is_testing_mode:
+        k = torch.arange(n_points.shape[-1], dtype=n_points.dtype, device=n_points.device)
+        end = torch.minimum(start + torch.div((k + 1) * (k + 2), 2, rounding_mode="floor"), end)
+    end = torch.clamp(end, min=start + 1)
     return (start + (point_u * (end - start)).to(torch.int32)).to(torch.int32)
 
 

@@ -78,56 +78,59 @@ def compute_rewards(
     )
     pen_near_agents = torch.zeros_like(rew_progress)
 
-    # Testing mode (which adds the goal reward) is not ported; `make_env`
-    # refuses it. Training omits the goal reward.
+    # Testing mode adds the goal reward and the collision penalties; the
+    # training reward methods leave the goal reward out.
     method = cfg.rew_method
-    rew = rew_progress
-    if method == "sparse":
-        rew = rew + pen_coll_agents + pen_coll_lanelets
-    if "ttc" in method:
-        pen_near_agents = _ttc_penalty(cfg, state)
-        rew = rew + pen_near_agents + pen_boundary
-        rew = rew + pen_coll_agents + pen_coll_lanelets
-        if "sparse" in method:
+    if cfg.is_testing_mode:
+        rew = rew_progress + rew_goal + pen_coll_agents + pen_coll_lanelets
+    else:
+        rew = rew_progress
+        if method == "sparse":
             rew = rew + pen_coll_agents + pen_coll_lanelets
-    if "distance" in method:
-        ramp = decreasing_fcn(
-            state.d_agents,
-            cfg.threshold_near_other_agents_low,
-            cfg.threshold_near_other_agents_high,
-        )
-        pen_near_agents = ramp.sum(-1) * cfg.penalty_near_other_agents
-        rew = rew + pen_near_agents + pen_boundary
-        if "sparse" in method:
+        if "ttc" in method:
+            pen_near_agents = _ttc_penalty(cfg, state)
+            rew = rew + pen_near_agents + pen_boundary
             rew = rew + pen_coll_agents + pen_coll_lanelets
-    if "cbf" in method:
-        if cfg.is_using_cbf and cfg.is_solve_qp:
-            # Penalize the deviation of the applied (filtered) action from
-            # the nominal RL action.
-            dev_v = (
-                torch.abs(state.applied_action[..., 0] - state.nominal_action[..., 0])
-                / cfg.max_speed
+            if "sparse" in method:
+                rew = rew + pen_coll_agents + pen_coll_lanelets
+        if "distance" in method:
+            ramp = decreasing_fcn(
+                state.d_agents,
+                cfg.threshold_near_other_agents_low,
+                cfg.threshold_near_other_agents_high,
             )
-            dev_s = (
-                torch.abs(state.applied_action[..., 1] - state.nominal_action[..., 1])
-                / cfg.max_steering
-            )
-            rew = (
-                rew
-                + cfg.penalty_deviate_from_cbf_vel * dev_v
-                + cfg.penalty_deviate_from_cbf_steer * dev_s
-            )
-        else:
-            # CBF-informed shaping from the constraint margins that the
-            # safety layer wrote into the state (`cbf_margin_step`).
-            cbf_rew = (
-                state.rew_near_left_lane
-                + state.rew_near_right_lane
-                + state.rew_near_other_agents_cbf
-            ) / 3
-            rew = rew + cbf_rew
-        if "sparse" in method:
-            rew = rew + pen_coll_agents + pen_coll_lanelets
+            pen_near_agents = ramp.sum(-1) * cfg.penalty_near_other_agents
+            rew = rew + pen_near_agents + pen_boundary
+            if "sparse" in method:
+                rew = rew + pen_coll_agents + pen_coll_lanelets
+        if "cbf" in method:
+            if cfg.is_using_cbf and cfg.is_solve_qp:
+                # Penalize the deviation of the applied (filtered) action from
+                # the nominal RL action.
+                dev_v = (
+                    torch.abs(state.applied_action[..., 0] - state.nominal_action[..., 0])
+                    / cfg.max_speed
+                )
+                dev_s = (
+                    torch.abs(state.applied_action[..., 1] - state.nominal_action[..., 1])
+                    / cfg.max_steering
+                )
+                rew = (
+                    rew
+                    + cfg.penalty_deviate_from_cbf_vel * dev_v
+                    + cfg.penalty_deviate_from_cbf_steer * dev_s
+                )
+            else:
+                # CBF-informed shaping from the constraint margins that the
+                # safety layer wrote into the state (`cbf_margin_step`).
+                cbf_rew = (
+                    state.rew_near_left_lane
+                    + state.rew_near_right_lane
+                    + state.rew_near_other_agents_cbf
+                ) / 3
+                rew = rew + cbf_rew
+            if "sparse" in method:
+                rew = rew + pen_coll_agents + pen_coll_lanelets
 
     rew = torch.clamp(rew, -1.0, 1.0)
     info = {

@@ -9,7 +9,8 @@ over the box u_lo <= u <= u_hi (phi: `safety.qp._phi_terms`), from the
 better of two starts, through an optional stiffness ladder and `n_iters`
 projected-Newton iterations (`csrc/qp_newton.cu`). Controls are [B, 2N]
 with the x block (acceleration) before the y block (steering rate); rows
-come packed by `safety.qp.pack_constraints`, invalid rows as ws = 0. CUDA
+come packed by `safety.qp.pack_constraints`, invalid rows as ws = 0; one
+agent has no pair rows (P = 0, pairs [B, 8, 0]). CUDA
 tensors launch the kernel; CPU tensors run `newton_solve_reference`, which
 follows the kernel's algorithm step for step.
 """
@@ -17,6 +18,7 @@ follows the kernel's algorithm step for step.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -154,7 +156,7 @@ def newton_solve_reference(
     N = d // 2
     P = pair_i.shape[0]
     Ms, Mp = singles.shape[-1], pairs.shape[-1]
-    Ks, Kp = Ms // N, Mp // max(P, 1)
+    Ks, Kp = Ms // N, (Mp // P if P else 0)
     dev, dt = u0.device, u0.dtype
     asx, asy, bs, hs, wss, wls = singles.unbind(1)
     apxi, apyi, apxj, apyj, bp, hp, wsp, wlp = pairs.unbind(1)
@@ -210,8 +212,9 @@ def newton_solve_reference(
         values (t < N) or pair t-N's Kp row values, for items t, t+THREADS,
         ... [B, S, THREADS]."""
         K = max(Ks, Kp)
+        pair_items = _pad_to(val_p.reshape(B, P, Kp), K) if P else val_p.new_zeros((B, 0, K))
         items = torch.cat(
-            [_pad_to(val_s.reshape(B, N, Ks), K), _pad_to(val_p.reshape(B, P, Kp), K)], dim=1
+            [_pad_to(val_s.reshape(B, N, Ks), K), pair_items], dim=1
         )  # [B, N+P, K], each item's values then zeros
         items = _pad_to(items.transpose(1, 2), THREADS)  # [B, K, R*THREADS]
         R = items.shape[-1] // THREADS
@@ -229,7 +232,7 @@ def newton_solve_reference(
             return _seq_sum(x.reshape(B, N, Ks))
 
         def pair_sum(x):  # [B, Mp] -> [B, P]
-            return _seq_sum(x.reshape(B, P, Kp))
+            return _seq_sum(x.reshape(B, P, Kp)) if P else x.new_zeros((B, 0))
 
         # Gradient and the 2x2 agent blocks: the agent's own rows, then its
         # pairs as i, then its pairs as j.
@@ -378,11 +381,12 @@ def newton_solve(
     B, d = u0.shape
     N = d // 2
     P = pair_i.shape[0]
-    if d != 2 * N or N == 0 or P == 0:
-        raise ValueError("the kernel needs N >= 2 agents with pair rows")
+    if d != 2 * N or N == 0:
+        raise ValueError(f"controls of width {d} are not two per agent")
     Ms, Mp = singles.shape[-1], pairs.shape[-1]
-    if Ms % N or Mp % P:
+    if Ms % N or (Mp % P if P else Mp):
         raise ValueError(f"row counts {Ms}, {Mp} do not split over {N} agents, {P} pairs")
+    Ks, Kp = Ms // N, (Mp // P if P else 0)  # one agent: no pair rows
     f32 = torch.float32
     _check(singles, "singles", f32, (B, 6, Ms))
     _check(pairs, "pairs", f32, (B, 8, Mp))
@@ -392,11 +396,13 @@ def newton_solve(
     _check(pair_j, "pair_j", torch.int32, (P,))
     if n_iters < 0 or soft_iters < 0:
         raise ValueError("iteration counts must be non-negative")
-    u = torch.empty((B, d), dtype=f32, device=u0.device)
-    F = torch.empty((B,), dtype=f32, device=u0.device)
     from sigmarl_tpu_torch.ops.build import library
 
-    fn = library("qp_newton").qp_newton_launch
+    lib = library("qp_newton")
+    _check_smem(lib, u0.device.index, N, Ks, Kp, P)
+    u = torch.empty((B, d), dtype=f32, device=u0.device)
+    F = torch.empty((B,), dtype=f32, device=u0.device)
+    fn = lib.qp_newton_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 9
@@ -409,7 +415,7 @@ def newton_solve(
     stream = ctypes.c_void_p(torch.cuda.current_stream(u0.device).cuda_stream)
     err = fn(
         p(singles), p(pairs), p(u0), p(u_init), p(u_nom), p(pair_i), p(pair_j), p(u), p(F),
-        B, N, Ms // N, Mp // P, P, n_iters, soft_iters,
+        B, N, Ks, Kp, P, n_iters, soft_iters,
         w_u[0], w_u[1], u_lo[0], u_lo[1], u_hi[0], u_hi[1], ridge,
         soft_cap, ws_cap, stream,
     )
@@ -422,6 +428,31 @@ def newton_solve(
 newton_solve.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _check_smem(lib, device_index: int, N: int, Ks: int, Kp: int, P: int) -> None:
+    """Raise ValueError where one env's rows need more shared memory than a
+    block on this card can have (checked once per library, card and
+    sizes)."""
+    smem = _smem_bytes(lib, N, Ks, Kp, P)
+    limit = ctypes.c_int(0)
+    lib.qp_newton_smem_limit.restype = ctypes.c_int
+    lib.qp_newton_smem_limit.argtypes = [ctypes.c_void_p]
+    with torch.cuda.device(device_index):
+        err = lib.qp_newton_smem_limit(ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError(f"shared-memory limit query failed: CUDA error {err}")
+    if smem > limit.value:
+        raise ValueError(
+            f"one env's rows need {smem} B of shared memory (N={N}, Ks={Ks}, Kp={Kp}), "
+            f"more than the {limit.value} B a block can have")
+
+
+def _smem_bytes(lib, N: int, Ks: int, Kp: int, P: int) -> int:
+    lib.qp_newton_smem_bytes.restype = ctypes.c_size_t
+    lib.qp_newton_smem_bytes.argtypes = [ctypes.c_int] * 4
+    return int(lib.qp_newton_smem_bytes(N, Ks, Kp, P))
+
+
 def solve_occupancy(N: int, Ks: int, Kp: int, P: int, B: int) -> dict:
     """The solve kernel's footprint on the current card at these sizes:
     shared memory per block (one block per env), blocks per SM
@@ -430,8 +461,6 @@ def solve_occupancy(N: int, Ks: int, Kp: int, P: int, B: int) -> dict:
     from sigmarl_tpu_torch.ops.build import library
 
     lib = library("qp_newton")
-    lib.qp_newton_smem_bytes.restype = ctypes.c_size_t
-    lib.qp_newton_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.qp_newton_blocks_per_sm.restype = ctypes.c_int
     lib.qp_newton_blocks_per_sm.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     blocks = ctypes.c_int(0)
@@ -440,6 +469,6 @@ def solve_occupancy(N: int, Ks: int, Kp: int, P: int, B: int) -> dict:
         raise RuntimeError(f"occupancy query failed: CUDA error {err}")
     sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
     resident = blocks.value * sms
-    return dict(smem_bytes=int(lib.qp_newton_smem_bytes(N, Ks, Kp, P)),
+    return dict(smem_bytes=_smem_bytes(lib, N, Ks, Kp, P),
                 blocks_per_sm=blocks.value, sms=sms,
                 waves=(B / resident) if resident else float("inf"))

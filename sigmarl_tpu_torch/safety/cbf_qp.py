@@ -1,16 +1,20 @@
-"""Batched truncated-Taylor CBF-QP safety filter (RL nominal controller):
-centralized, decentralized or grouped, or margins-only.
+"""Batched truncated-Taylor CBF-QP safety filter: centralized,
+decentralized or grouped, or margins-only; RL or CLF nominal controller.
 
 Per step, per env:
 - vehicles are over-approximated by C circles (`circles.py`),
 - lane barriers: h = pseudo-distance(circle center) - radius, with gradient
   (forward differences) and Hessian (central differences) from a 9-point
   stencil of the pseudo-distance field; the stencil's distances come from
-  the CUDA kernel of `ops/boundary.py` over the top-k boundary chunks,
+  the CUDA kernel of `ops/boundary.py` over the top-k boundary chunks (or
+  the chunks of a window around the closest boundary vertex, or every
+  segment); `fp16_parity` runs the finite differences in float16,
 - pairwise barriers: h = |p_i - p_j|^2 - (2r + buffer)^2 per circle pair,
 - both turned into control-affine truncated-Taylor constraints over the
   horizon 2*dt via the closed-form circle-center kinematics,
 - nominal controller: the RL action converted to (accel, steering rate),
+  or a CLF P-controller on heading and speed with two relaxed CLF rows per
+  agent in the QP,
 - adaptive per-constraint class-K gain lambda in [0, 1] (a QP variable),
 - solve (the CUDA kernel of `ops/qp.py`), fall back to the nominal action
   where the solution is not finite, and write the safe action back as
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from sigmarl_tpu_torch.constants import AGENTS
+from sigmarl_tpu_torch.core.geometry import angle_eliminate_two_pi
 from sigmarl_tpu_torch.device import resolve_device
 from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState
@@ -41,7 +46,7 @@ from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
 from sigmarl_tpu_torch.safety.circles import CircleApproximation, circle_centers_world
 from sigmarl_tpu_torch.safety.grouping import group_agents_k_nearest, same_group_mask
 from sigmarl_tpu_torch.safety.kinematics import CenterKinematics, center_kinematics
-from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, topk_chunks
+from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, topk_chunks, window_chunks
 from sigmarl_tpu_torch.safety.qp import StructuredConstraintSet, solve_structured_qp
 
 Tensor = torch.Tensor
@@ -50,8 +55,7 @@ Tensor = torch.Tensor
 @dataclass(frozen=True)
 class CBFConfig:
     """Static CBF-filter configuration (same fields and defaults as the JAX
-    package's `CBFConfig`; the options this port does not run raise
-    `NotImplementedError` in `CBFSafetyFilter`)."""
+    package's `CBFConfig`)."""
 
     n_agents: int
     n_circles: int = 3
@@ -63,7 +67,8 @@ class CBFConfig:
     safety_buffer: float = 0.0
     is_solve_qp: bool = True
     adaptive_lambda_cost: bool = False
-    nom_controller_type: str = "rl"  # only "rl" is ported
+    nom_controller_type: str = "rl"  # {"rl", "clf"}
+    # CLF gains
     lam_clf: float = 2.0
     ref_speed: float = 1.0
     w_clf_relax: float = 1.0
@@ -89,7 +94,14 @@ class CBFConfig:
     newton_ws_cap: float = 3e6
     # Constraint penetration above which a solve counts as infeasible.
     infeasibility_tol: float = 1e-3
+    # Reference-parity mode: the pseudo distances rounded to float16 and the
+    # stencil's finite differences in float16 arithmetic, as the original
+    # SigmaRL filter computes them; the margin upcast before the radius is
+    # subtracted.
     fp16_parity: bool = False
+    # Lane stencil over the segments of a window of `pd_window` segment
+    # indices around the closest boundary vertex; as in the JAX package it
+    # takes effect only with pd_topk_chunks = 0.
     use_windowed_pseudo_distance: bool = False
     pd_window: int = 32
     # Lane stencil over the k boundary chunks of 16 segments with the
@@ -137,14 +149,8 @@ class CBFSafetyFilter:
         max_group_size: int = 0,
         device: str | torch.device | None = None,
     ):
-        unported = {
-            "the CLF nominal controller": cfg.nom_controller_type != "rl",
-            "fp16_parity": cfg.fp16_parity,
-            "the windowed pseudo-distance": cfg.use_windowed_pseudo_distance,
-        }
-        for what, on in unported.items():
-            if on:
-                raise NotImplementedError(f"{what} is not ported to the PyTorch filter")
+        if cfg.nom_controller_type not in ("rl", "clf"):
+            raise ValueError(f"unknown nominal controller {cfg.nom_controller_type!r}")
         self.device = resolve_device(device)
         if tables.long_term.device != self.device:
             raise ValueError(
@@ -172,6 +178,13 @@ class CBFSafetyFilter:
         self._offsets = torch.as_tensor(
             _STENCIL * np.array([cfg.dx, cfg.dy], np.float32), device=self.device
         )
+        # The divisors of the float16 finite differences, rounded to float16
+        # as the Python constants are in numpy's and JAX's float16 arithmetic
+        # (a Python scalar would stay float32 in PyTorch's CUDA arithmetic).
+        self._fd16 = torch.tensor(
+            [cfg.dx, cfg.dy, cfg.dx**2, cfg.dy**2, 4 * cfg.dx * cfg.dy],
+            dtype=torch.float16, device=self.device,
+        )
 
     def _wl_value(self) -> float:
         """The lambda penalty weight of every row (grouped mode's cross
@@ -197,18 +210,35 @@ class CBFSafetyFilter:
         s_new = torch.clamp(s_new, self.steer_min, self.steer_max)
         return torch.stack([v_new, s_new], dim=-1)
 
-    def stencil_inputs(self, centers: Tensor, path_id: Tensor):
+    def stencil_inputs(
+        self,
+        centers: Tensor,
+        path_id: Tensor,
+        idx_left: Tensor | None = None,
+        idx_right: Tensor | None = None,
+    ):
         """The lane stencil's kernel inputs: the 9-point queries around
         every circle center q [B*N, C*9, 2], the path ids [B*N] int32, and
-        per side the k boundary chunks with the smallest distance bound
-        [B*N, k] int32 (None for a full scan)."""
+        per side the boundary chunks to sweep [B*N, k] int32: the k chunks
+        with the smallest distance bound, or with `pd_topk_chunks` = 0 and
+        the windowed flag the chunks of each row's window around its
+        closest boundary vertex (`idx_left` / `idx_right` [B, N]), else None
+        (every segment)."""
         cfg = self.cfg
         t = self.tables
         B, N, C = centers.shape[:3]
         q = (centers[..., None, :] + self._offsets).reshape(B * N, C * 9, 2).contiguous()
         pid = path_id.reshape(B * N).to(torch.int32).contiguous()
         if cfg.pd_topk_chunks == 0:
-            return q, pid, None, None
+            if not (cfg.use_windowed_pseudo_distance and idx_left is not None):
+                return q, pid, None, None
+            S = t.left_seg.shape[1]
+
+            def window(idx, n_points):
+                return window_chunks(pid, idx.reshape(B * N), cfg.pd_window, n_points - 1,
+                                     t.is_loop, S).contiguous()
+
+            return q, pid, window(idx_left, t.n_points_left_b), window(idx_right, t.n_points_right_b)
         k_sel = min(cfg.pd_topk_chunks, t.left_seg.shape[1] // PD_CHUNK)
         # Agent reference point and a static reach covering every stencil
         # query: the largest circle offset from the centers' mean plus the
@@ -220,30 +250,40 @@ class CBFSafetyFilter:
         chunks_r = topk_chunks(t.right_chunk_cc, t.right_chunk_cr, pid, p_ref, reach, k_sel)
         return q, pid, chunks_l, chunks_r
 
-    def _lane_terms(self, centers: Tensor, path_id: Tensor):
+    def _lane_terms(self, centers: Tensor, path_id: Tensor, idx_left=None, idx_right=None):
         """Safety margin, gradient and Hessian of the pseudo-distance field
-        at each circle center. centers [B, N, C, 2]; returns per side
-        (sm [B,N,C], grad [B,N,C,2], hess [B,N,C,2,2])."""
+        at each circle center. centers [B, N, C, 2]; path_id and the closest
+        boundary vertices [B, N]; returns per side (sm [B,N,C], grad
+        [B,N,C,2], hess [B,N,C,2,2])."""
         cfg = self.cfg
         B, N, C = centers.shape[:3]
-        q, pid, chunks_l, chunks_r = self.stencil_inputs(centers, path_id)
+        q, pid, chunks_l, chunks_r = self.stencil_inputs(centers, path_id, idx_left, idx_right)
         d_left, d_right = pseudo_distance_stencil(
             q, pid, self.tables.left_seg, self.tables.right_seg, chunks_l, chunks_r
         )
 
         def grads(d):
             d = d.reshape(B, N, C, 9)
+            dx, dy, dx2, dy2, dxy4 = (cfg.dx, cfg.dy, cfg.dx**2, cfg.dy**2, 4 * cfg.dx * cfg.dy)
+            if cfg.fp16_parity:
+                d = d.to(torch.float16)
+                dx, dy, dx2, dy2, dxy4 = self._fd16.unbind(0)
             d0 = d[..., 0]
             # Forward differences for the gradient, central for the Hessian.
-            gx = (d[..., 1] - d0) / cfg.dx
-            gy = (d[..., 2] - d0) / cfg.dy
-            hxx = (d[..., 1] - 2 * d0 + d[..., 3]) / cfg.dx**2
-            hyy = (d[..., 2] - 2 * d0 + d[..., 4]) / cfg.dy**2
-            hxy = (d[..., 5] - d[..., 6] - d[..., 7] + d[..., 8]) / (4 * cfg.dx * cfg.dy)
+            gx = (d[..., 1] - d0) / dx
+            gy = (d[..., 2] - d0) / dy
+            hxx = (d[..., 1] - 2 * d0 + d[..., 3]) / dx2
+            hyy = (d[..., 2] - 2 * d0 + d[..., 4]) / dy2
+            hxy = (d[..., 5] - d[..., 6] - d[..., 7] + d[..., 8]) / dxy4
             grad = torch.stack([gx, gy], dim=-1)
             hess = torch.stack(
                 [torch.stack([hxx, hxy], -1), torch.stack([hxy, hyy], -1)], dim=-2
             )
+            if cfg.fp16_parity:
+                # Upcast, then subtract the radius in float32: no second
+                # rounding to float16.
+                f = centers.dtype
+                return d0.to(f) - self.approx.radius, grad.to(f), hess.to(f)
             return d0 - self.approx.radius, grad, hess
 
         return grads(d_left), grads(d_right)
@@ -312,17 +352,33 @@ class CBFSafetyFilter:
         B, N = state.pos.shape[:2]
         C = cfg.n_circles
         dev, f32 = state.pos.device, state.pos.dtype
+        v, psi = state.speed, state.rot
         if cfg.is_obs_noise:
             if noise is None:
                 noise = torch.rand(rl_actions.shape, generator=generator, device=dev)
             rl_actions = rl_actions + noise * cfg.obs_noise_level
-        rl_clamped, u_nom = self.rl_action_to_u(rl_actions, state.speed, state.steering)
+        use_clf = cfg.nom_controller_type == "clf"
+        if use_clf:
+            # CLF nominal controller: P-control on heading and speed toward
+            # the third short-term reference point.
+            target = state.short_term[:, :, 2, :]
+            desired = torch.atan2(target[..., 1] - state.pos[..., 1],
+                                  target[..., 0] - state.pos[..., 0])
+            e_head = angle_eliminate_two_pi(desired - psi)
+            e_speed = cfg.ref_speed - v
+            u_nom = torch.stack([
+                torch.clamp(cfg.k_clf_speed * e_speed, self.a_min, self.a_max),
+                torch.clamp(cfg.k_clf_heading * e_head, self.rate_min, self.rate_max),
+            ], dim=-1)
+            rl_clamped = torch.stack([v + e_speed, e_head], dim=-1)
+        else:
+            rl_clamped, u_nom = self.rl_action_to_u(rl_actions, v, state.steering)
 
-        centers = circle_centers_world(self.approx, state.pos, state.rot)  # [B,N,C,2]
-        kins = center_kinematics(
-            state.rot, state.speed, state.steering, self._centers_local, self.l_r, self.l_wb
+        centers = circle_centers_world(self.approx, state.pos, psi)  # [B,N,C,2]
+        kins = center_kinematics(psi, v, state.steering, self._centers_local, self.l_r, self.l_wb)
+        (smL, gL, HL), (smR, gR, HR) = self._lane_terms(
+            centers, state.path_id, state.idx_left, state.idx_right
         )
-        (smL, gL, HL), (smR, gR, HR) = self._lane_terms(centers, state.path_id)
         A_L, b0_L, h_L = self._lane_coeffs(kins, smL, gL, HL)
         A_R, b0_R, h_R = self._lane_coeffs(kins, smR, gR, HR)
         A_pi, A_pj, b0_p, h_p = self._pair_coeffs(centers, kins)
@@ -331,19 +387,30 @@ class CBFSafetyFilter:
         lane_b0 = torch.stack([b0_L, b0_R], dim=3).reshape(B, N, 2 * C)
         lane_h = torch.stack([h_L, h_R], dim=3).reshape(B, N, 2 * C)
 
-        # CLF rows (e = 0 under the RL nominal controller, and invalid).
-        zeros2 = torch.zeros((B, N, 2), dtype=f32, device=dev)
+        # CLF rows, residual e * u - lam_clf / 2 * e^2: the heading row acts
+        # on the steering rate, the speed row on the acceleration. Valid
+        # (with slack weight w_clf_relax) only under the CLF controller;
+        # zeros (and invalid) under the RL one.
+        if use_clf:
+            zeros_bn = torch.zeros((B, N), dtype=f32, device=dev)
+            clf_A = torch.stack([torch.stack([zeros_bn, e_head], dim=-1),
+                                 torch.stack([e_speed, zeros_bn], dim=-1)], dim=2)  # [B,N,2,2]
+            clf_b = torch.stack([-cfg.lam_clf * 0.5 * e_head**2,
+                                 -cfg.lam_clf * 0.5 * e_speed**2], dim=-1)
+        else:
+            clf_A = torch.zeros((B, N, 2, 2), dtype=f32, device=dev)
+            clf_b = torch.zeros((B, N, 2), dtype=f32, device=dev)
         Ks = 2 * C + 2
-        A_s = torch.cat([lane_A, torch.zeros((B, N, 2, 2), dtype=f32, device=dev)], dim=2)
-        b0_s = torch.cat([lane_b0, zeros2], dim=2)
-        h_s = torch.cat([lane_h, zeros2], dim=2)
+        A_s = torch.cat([lane_A, clf_A], dim=2)
+        b0_s = torch.cat([lane_b0, clf_b], dim=2)
+        h_s = torch.cat([lane_h, torch.zeros((B, N, 2), dtype=f32, device=dev)], dim=2)
         ws_s = torch.cat(
             [torch.full((B, N, 2 * C), cfg.lane_slack_weight, dtype=f32, device=dev),
              torch.full((B, N, 2), cfg.w_clf_relax, dtype=f32, device=dev)], dim=2,
         )
         valid_s = torch.cat(
             [torch.ones((B, N, 2 * C), dtype=torch.bool, device=dev),
-             torch.zeros((B, N, 2), dtype=torch.bool, device=dev)], dim=2,
+             torch.full((B, N, 2), use_clf, dtype=torch.bool, device=dev)], dim=2,
         )
 
         P = self._pair_i.shape[0]
@@ -469,7 +536,10 @@ class CBFSafetyFilter:
         )
         zero = torch.zeros((), dtype=r_s.dtype, device=r_s.device)
         viol_s = torch.where(cons.valid_s, torch.clamp(-r_s, min=0.0), zero).amax((-1, -2))
-        viol_p = torch.where(cons.valid_p, torch.clamp(-r_p, min=0.0), zero).amax((-1, -2))
+        viol_p = torch.where(cons.valid_p, torch.clamp(-r_p, min=0.0), zero).reshape(
+            r_p.shape[0], -1)
+        # One agent has no pair rows: no pair penetration.
+        viol_p = viol_p.amax(-1) if viol_p.shape[-1] else torch.zeros_like(viol_s)
         viol = torch.maximum(viol_s, viol_p)
 
         safe_actions = self.u_to_rl_action(u_star, state.speed, state.steering)

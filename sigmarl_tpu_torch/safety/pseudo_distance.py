@@ -127,3 +127,53 @@ def chunk_rows(seg_table: Tensor, path_id: Tensor, chunks: Tensor) -> Tensor:
     flat = path_id.long()[..., None] * NC + chunks.long()
     rows = seg_table.reshape(K * NC, PD_CHUNK, 8)[flat]
     return rows.reshape(*flat.shape[:-1], chunks.shape[-1] * PD_CHUNK, 8)
+
+
+def window_chunks(
+    path_id: Tensor,  # [...] int32
+    center_idx: Tensor,  # [...] int32 closest boundary vertex index
+    window: int,
+    n_seg: Tensor,  # [K] int32 valid segment count per path
+    is_loop: Tensor,  # [K] bool
+    n_rows: int,  # S, the segment axis of the table
+) -> Tensor:
+    """Indices [..., 2 * ((window - 1) // PD_CHUNK + 2)] int32 of chunks
+    that together hold every segment of each row's `window` around its
+    closest boundary vertex, as the JAX package's `window_segment_rows`
+    picks it: `window` consecutive indices from center - window // 2,
+    wrapping modulo the segment count on loop paths, clamped into [0,
+    n_seg) (and below S) on open ones. The window is one run of indices,
+    or two where it wraps; a run of at most `window` indices starting in
+    chunk c lies in chunks c .. c + (window - 1) // PD_CHUNK + 1, each
+    listed capped at the run's last chunk (repeats leave a minimum as it
+    is). The chunks hold more segments than the window, which can only
+    lower the minimum."""
+    pid = path_id.long()
+    c = center_idx.long()
+    ns = n_seg[pid].long()
+    loop = is_loop[pid]
+    half = window // 2
+    # Open paths: one run from the clamped start.
+    start = torch.minimum(torch.clamp(c - half, min=0), torch.clamp(ns - window, min=0))
+    open_end = torch.clamp(start + window - 1, max=n_rows - 1)
+    # Loop paths: from (c - half) mod ns; a window as long as the path
+    # covers all of it.
+    nsp = torch.clamp(ns, min=1)
+    a0 = torch.remainder(c - half, nsp)
+    whole = ns <= window
+    wraps = a0 + window - 1 >= nsp
+    loop_a0 = torch.where(whole, torch.zeros_like(a0), a0)
+    loop_a1 = torch.where(whole | wraps, nsp - 1, a0 + window - 1)
+    loop_b0 = torch.where(wraps & ~whole, torch.zeros_like(a0), loop_a0)
+    loop_b1 = torch.where(wraps & ~whole, torch.remainder(a0 + window - 1, nsp), loop_a1)
+    runs = [
+        (torch.where(loop, loop_a0, start), torch.where(loop, loop_a1, open_end)),
+        (torch.where(loop, loop_b0, start), torch.where(loop, loop_b1, open_end)),
+    ]
+    per_run = (window - 1) // PD_CHUNK + 2
+    out = []
+    for x, y in runs:
+        first, last = torch.div(x, PD_CHUNK, rounding_mode="floor"), torch.div(
+            y, PD_CHUNK, rounding_mode="floor")
+        out += [torch.minimum(first + j, last) for j in range(per_run)]
+    return torch.stack(out, dim=-1).to(torch.int32)

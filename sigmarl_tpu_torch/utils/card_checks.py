@@ -1,0 +1,141 @@
+"""Checks of the port on the card that `chip_smoke.py` and the card tests
+(`tests/test_torch_gpu.py`) share: K1's inputs with near-zero CLF rows,
+and one testing-mode, CLF-filtered, fp16-parity step on the card against
+the same step on the CPU. Both need a CUDA device."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from sigmarl_tpu_torch.safety.qp import StructuredConstraintSet
+
+# The CLF errors that `near_zero_clf_rows` puts in: rows of norm at most 1e-6.
+NEAR_ZERO_ERRORS = (0.0, 1e-9, -1e-9, 1e-7, -1e-7, 5e-7, -5e-7, 1e-6)
+
+
+class Check(NamedTuple):
+    """One measured quantity, its limit and whether it is within it."""
+
+    what: str
+    value: float
+    limit: float
+    ok: bool
+
+
+def near_zero_clf_rows(cons: StructuredConstraintSet, lam_clf: float,
+                       seed: int) -> StructuredConstraintSet:
+    """`cons` with a third of the agents' CLF errors (e_head, e_speed) set
+    from `NEAR_ZERO_ERRORS`: CLF rows of norm at most 1e-6, which the row
+    normalization turns into slack weights near 1e-12 and large b / norm,
+    where K1's fast division leaves its ranges."""
+    rng = np.random.default_rng(seed)
+    B, N = cons.A_s.shape[:2]
+    dev = cons.A_s.device
+    pick = torch.tensor(rng.random((B, N)) < 1 / 3, device=dev)
+    e = torch.tensor(rng.choice(NEAR_ZERO_ERRORS, (B, N, 2)), dtype=torch.float32, device=dev)
+    A_s, b_s = cons.A_s.clone(), cons.b_s.clone()
+    A_s[:, :, -2, 1] = torch.where(pick, e[..., 0], A_s[:, :, -2, 1])
+    A_s[:, :, -1, 0] = torch.where(pick, e[..., 1], A_s[:, :, -1, 0])
+    b_s[:, :, -2:] = torch.where(pick[..., None], -lam_clf / 2 * e * e, b_s[:, :, -2:])
+    return dataclasses.replace(cons, A_s=A_s, b_s=b_s)
+
+
+def _fp16_distances(cbf, state) -> torch.Tensor:
+    """The stencil's distances as the fp16-parity filter rounds them, per
+    lane row: [B, N, 2C, 9] (row c * 2 + side, as `assemble` orders them)."""
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.safety.circles import circle_centers_world
+
+    centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+    B, N, C = centers.shape[:3]
+    q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id, state.idx_left, state.idx_right)
+    d_left, d_right = pseudo_distance_stencil(q, pid, cbf.tables.left_seg, cbf.tables.right_seg,
+                                              cl, cr)
+    d = torch.stack([d_left.reshape(B, N, C, 9), d_right.reshape(B, N, C, 9)], dim=3)
+    return d.to(torch.float16).reshape(B, N, 2 * C, 9)
+
+
+def clf_step_card_vs_cpu(dev: str = "cuda", B: int = 8) -> List[Check]:
+    """One testing-mode, CLF-filtered, fp16-parity step (cpm_mixed, N=4)
+    from the same state and draws on the card and on the CPU:
+
+    - the nominal input and the CLF rows to atol 1e-5;
+    - the lane rows (A, b, h) to atol 1e-4 and relative 1e-5, except in
+      rows whose float16 distances differ between the two devices (where
+      the circle centers part by an ulp, the rounding to float16 can fall
+      on either side), and those exceptions in at most 1 % of the entries;
+    - the card's solution no worse than the CPU's by a relative 1e-3 in F
+      on the CPU's rows;
+    - the env step from the same applied actions: rewards and positions to
+      atol 2e-5, observations to 1e-4, done flags equal.
+
+    Returns the checks; the caller asserts that every one is ok."""
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, Parameters, cbf_filtered_step, make_env
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.env.structs import state_to
+    from sigmarl_tpu_torch.safety.qp import solve_structured_qp
+
+    N = 4
+    p = Parameters(scenario_type="cpm_mixed", n_agents=N, num_vmas_envs=B, dt=0.1,
+                   max_steps=1_000_000, is_testing_mode=True, is_use_mtv_distance=False,
+                   is_obs_noise=False, is_using_cbf_testing=True, nom_controller_type="clf")
+    ccfg = CBFConfig(n_agents=N, nom_controller_type="clf", fp16_parity=True)
+    env_c, env_g = make_env(p, device="cpu"), make_env(p, device=dev)
+    cbf_c = CBFSafetyFilter(ccfg, env_c.cfg, env_c.tables, device="cpu")
+    cbf_g = CBFSafetyFilter(ccfg, env_g.cfg, env_g.tables, device=dev)
+    g = torch.Generator().manual_seed(4)
+    state, _ = env_c.reset(generator=g)
+    act = torch.zeros((B, N, 2))
+    for _ in range(5):
+        state, *_ = cbf_filtered_step(env_c, cbf_c, state, act, generator=g)
+    sg = state_to(state, torch.device(dev))
+    cons, u_nom, _, _ = cbf_c.assemble(state, act)
+    cons_g, u_nom_g, _, _ = cbf_g.assemble(sg, act.to(dev))
+    checks = [Check("nominal input", float((u_nom_g.cpu() - u_nom).abs().max()), 1e-5, False)]
+
+    lane = slice(0, 2 * ccfg.n_circles)
+    d16_differs = (_fp16_distances(cbf_g, sg).cpu() != _fp16_distances(cbf_c, state)).any(-1)
+    clf_err, apart, apart_agreeing, entries = 0.0, 0, 0, 0
+    for f in ("A_s", "b_s", "h_s"):
+        a, b = getattr(cons_g, f).cpu(), getattr(cons, f)
+        clf_err = max(clf_err, float((a[:, :, -2:] - b[:, :, -2:]).abs().max()))
+        far = ~torch.isclose(a[:, :, lane], b[:, :, lane], atol=1e-4, rtol=1e-5)
+        if far.dim() == 4:  # A: [B, N, rows, 2]
+            far = far.any(-1)
+        apart += int(far.sum())
+        apart_agreeing += int((far & ~d16_differs).sum())
+        entries += far.numel()
+    checks += [
+        Check("CLF rows", clf_err, 1e-5, False),
+        Check("lane-row entries apart where the float16 distances agree", apart_agreeing, 0, False),
+        Check("share of lane-row entries apart", apart / entries, 0.01, False),
+    ]
+
+    fc = cbf_c.filter_actions(state, act, u_init=state.cbf_u_prev)
+    fg = cbf_g.filter_actions(sg, act.to(dev), u_init=sg.cbf_u_prev)
+    w_u = (ccfg.w_u_acc, ccfg.w_u_steer)
+    lo, hi = (cbf_c.a_min, cbf_c.rate_min), (cbf_c.a_max, cbf_c.rate_max)
+
+    def F(u):
+        return solve_structured_qp(cons, u_nom, w_u, lo, hi, n_iters=0, u_init=u)[1].double()
+
+    F_c, F_g = F(fc.u_star), F(fg.u_star.cpu())
+    checks.append(Check("card F above CPU F (relative)",
+                        float(((F_g - F_c) / (1.0 + F_c.abs())).max()), 1e-3, False))
+
+    draws = ResetDraws.sample(env_c.cfg, g, "cpu")
+    draws_g = ResetDraws(*(None if x is None else x.to(dev) for x in (
+        draws.scenario_gumbel, draws.path_u, draws.point_u, draws.speed_u)))
+    sc, oc, rc, dc, _ = env_c.step(state, fc.safe_actions, reset_draws=draws)
+    sg2, og, rg, dg, _ = env_g.step(sg, fc.safe_actions.to(dev), reset_draws=draws_g)
+    checks += [
+        Check("step reward", float((rg.cpu() - rc).abs().max()), 2e-5, False),
+        Check("step position", float((sg2.pos.cpu() - sc.pos).abs().max()), 2e-5, False),
+        Check("step observation", float((og.cpu() - oc).abs().max()), 1e-4, False),
+        Check("step done flags differing", int((dg.cpu() != dc).sum()), 0, False),
+    ]
+    return [c._replace(ok=c.value <= c.limit) for c in checks]

@@ -27,7 +27,7 @@ B, N = 4, 15
 # Env options that once raised and are ported now.
 PORTED_ENV_OPTIONS = {
     "n_observed_steps", "is_use_mtv_distance", "is_obs_noise", "is_using_opponent_modeling",
-    "is_using_prioritized_marl",
+    "is_using_prioritized_marl", "is_testing_mode", "experiment_type",
 }
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -152,9 +152,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     ],
 )
 def test_unported_env_options_raise(flag):
-    """Options still unported raise; those ported since (history, MTV,
-    noise, the opponent-modeling pad, XP-MARL's env config) build, reset
-    and step with finite outputs."""
+    """Options still unported (the challenge buffer) raise; those ported
+    since (history, MTV, noise, the opponent-modeling pad, XP-MARL's env
+    config, testing mode, the lab experiment type) build, reset and step
+    with finite outputs."""
     from sigmarl_tpu_torch import make_env
 
     p = tcfg.Parameters(**{**params("cpm_entire", N, B), **flag})
@@ -182,28 +183,38 @@ def test_unported_env_options_raise(flag):
     ],
 )
 def test_unported_filter_options_raise(pair, cbf_kw, filter_kw):
-    """Filter options still unported raise; observation noise, ported
-    since, builds and filters one step with finite outputs."""
+    """Every filter option the JAX filter runs is ported now: each of these
+    (observation noise, fp16 parity, the CLF nominal controller, the
+    windowed flag) builds and filters one step with finite outputs; an
+    unknown nominal controller raises."""
     from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter
 
     _, tenv = pair
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=N, obs_noise_level=0.05, **cbf_kw), tenv.cfg,
+                          tenv.tables, device="cpu", **filter_kw)
+    g = torch.Generator().manual_seed(1)
+    state, _ = tenv.reset(generator=g)
+    info = cbf.filter_actions(state, torch.full((B, N, 2), 0.3), generator=g)
+    assert bool(info.solved.all()) and bool(torch.isfinite(info.safe_actions).all())
     if cbf_kw == dict(is_obs_noise=True):
-        cbf = CBFSafetyFilter(CBFConfig(n_agents=N, obs_noise_level=0.05, **cbf_kw), tenv.cfg,
-                              tenv.tables, device="cpu", **filter_kw)
-        g = torch.Generator().manual_seed(1)
-        state, _ = tenv.reset(generator=g)
-        info = cbf.filter_actions(state, torch.full((B, N, 2), 0.3), generator=g)
-        assert bool(info.solved.all()) and bool(torch.isfinite(info.safe_actions).all())
         assert not bool((info.nominal_actions[..., 0] == 0.3).any())  # the noise moved them
-        return
-    with pytest.raises(NotImplementedError):
-        CBFSafetyFilter(CBFConfig(n_agents=N, **cbf_kw), tenv.cfg, tenv.tables,
+    with pytest.raises(ValueError):
+        CBFSafetyFilter(CBFConfig(n_agents=N, nom_controller_type="mpc"), tenv.cfg, tenv.tables,
                         device="cpu", **filter_kw)
 
 
 def test_unported_resets_raise(pair):
+    """Both resets from given poses are ported: each gives a finite first
+    observation and sets the given paths or poses; wrong shapes raise."""
     _, tenv = pair
-    with pytest.raises(NotImplementedError):
-        tenv.reset_predefined(None, None, None)
-    with pytest.raises(NotImplementedError):
-        tenv.reset_from_poses(None, None, None)
+    init = torch.zeros((N, 3))
+    init[:, :2] = tenv.tables.long_term[:N, 5]
+    init[:, 2] = tenv.tables.center_line_yaw[:N, 5]
+    state, obs = tenv.reset_predefined(init, torch.arange(N))
+    assert torch.equal(state.path_id[0], torch.arange(N, dtype=torch.int32))
+    assert bool(torch.isfinite(obs).all())
+    state, obs = tenv.reset_from_poses(state.pos, state.rot)
+    assert float(state.d_ref.max()) < 1e-4  # each pose lies on its chosen path
+    assert bool(torch.isfinite(obs).all())
+    with pytest.raises(RuntimeError):
+        tenv.reset_from_poses(state.pos[:, :2], state.rot)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-rollout-like sizes, and the kernels' launches in training iterations and
-the training entry point on the card. Every test here needs a CUDA
+rollout-like sizes and on the evaluation path's inputs (one agent, active
+CLF rows, one to five circles, window selections), the kernels' launches
+in training iterations, the training entry point, and steps on the card
+against the CPU. Every test here needs a CUDA
 device (marker `gpu`) and skips without one. The file imports no JAX, so
 it also runs on a machine that has only PyTorch:
 
@@ -25,6 +27,7 @@ from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter
 from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, topk_chunks
 from sigmarl_tpu_torch.safety.qp import StructuredConstraintSet, kernel_inputs
 from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step
+from sigmarl_tpu_torch.utils.card_checks import clf_step_card_vs_cpu, near_zero_clf_rows
 
 pytestmark = pytest.mark.gpu
 B, N, Q = 64, 15, 27
@@ -540,3 +543,107 @@ def test_xpmarl_iteration_on_the_card(tmp_path):
     for k in ("loss_objective", "loss_critic", "loss_priority"):
         assert np.isfinite(float(m[k])), k
     assert bool(torch.isfinite(state.obs).all()) and state.opt_state.count == 4
+
+
+def _clf_live(N, Bc, C=3, scenario="cpm_mixed", **cbf_kw):
+    """A testing-mode env (CLF nominal controller, C circles) and its filter
+    on the card, and a live state after 4 filtered steps from a reset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    p = Parameters(
+        scenario_type=scenario, n_agents=N, num_vmas_envs=Bc, dt=0.1, max_steps=1_000_000,
+        is_testing_mode=True, is_use_mtv_distance=False, is_obs_noise=False,
+        is_using_cbf_testing=True, nom_controller_type="clf", n_circles_approximate_vehicle=C,
+    )
+    env = make_env(p, device="cuda")
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=N, n_circles=C, nom_controller_type="clf", **cbf_kw),
+                          env.cfg, env.tables, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(N + C)
+    state, _ = env.reset(generator=g)
+    act = torch.zeros((Bc, N, 2), device="cuda")
+    for _ in range(4):
+        state, *_ = cbf_filtered_step(env, cbf, state, act, generator=g)
+    return env, cbf, state, g
+
+
+def _kernel_args(cbf, cons, u_nom, state):
+    lo, hi = (cbf.a_min, cbf.rate_min), (cbf.a_max, cbf.rate_max)
+    return (*kernel_inputs(cons, u_nom, lo, hi, state.cbf_u_prev, cbf.cfg.newton_ws_cap),
+            (cbf.cfg.w_u_acc, cbf.cfg.w_u_steer), lo, hi)
+
+
+def _solve_matches_plain_exactly(args):
+    """Controls after 0 and 1 iterations bit for bit; F at 30 iterations
+    to a relative 1e-4 and at the 3+5 budget to 1e-3, with controls
+    finite."""
+    for it in (0, 1):
+        u_k, _ = newton_solve(*args, it)
+        u_p, _ = newton_solve_reference(*args, it)
+        torch.cuda.synchronize()
+        assert torch.equal(u_k, u_p), (it, float((u_k - u_p).abs().max()))
+    _solve_matches_plain(args, budgets=((30, 0, 1e-4), (5, 3, 1e-3)))
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5])
+def test_solve_kernel_at_one_agent(C):
+    """The ITSC'25 sweep's input: one agent (no pair rows, P = 0, 2x2
+    systems) with 2C lane rows and 2 active CLF rows, near-zero CLF rows
+    included."""
+    env, cbf, state, g = _clf_live(1, 32, C)
+    cons, u_nom, _, _ = cbf.assemble(state, torch.zeros((32, 1, 2), device="cuda"))
+    assert cons.b_p.shape[1] == 0 and cons.b_s.shape[-1] == 2 * C + 2
+    args = _kernel_args(cbf, near_zero_clf_rows(cons, cbf.cfg.lam_clf, C), u_nom, state)
+    assert args[1].shape == (32, 8, 0)
+    _solve_matches_plain_exactly(args)
+
+
+@pytest.mark.parametrize("N, scenario", [(4, "cpm_mixed"), (15, "cpm_entire")])
+def test_solve_kernel_with_active_clf_rows(N, scenario):
+    """CLF rows valid with slack weight 1 (after normalization from ~1e-12
+    to 3e6), a third of them near zero on purpose."""
+    env, cbf, state, g = _clf_live(N, 32, 3, scenario)
+    cons, u_nom, _, _ = cbf.assemble(state, torch.zeros((32, N, 2), device="cuda"))
+    assert bool(cons.valid_s[:, :, -2:].all())
+    cons = near_zero_clf_rows(cons, cbf.cfg.lam_clf, N)
+    _solve_matches_plain_exactly(_kernel_args(cbf, cons, u_nom, state))
+
+
+def test_solve_kernel_refuses_more_shared_memory_than_a_block_has():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    with pytest.raises(ValueError, match="shared memory"):
+        newton_solve(*_synthetic_qp(2, 40, 12, 25, seed=1), 1)
+
+
+@pytest.mark.parametrize("C, window", [(1, False), (5, False), (3, True)])
+def test_stencil_kernel_at_one_and_five_circles_and_windows(C, window):
+    """K2 bit for bit against its plain version at C*9 = 9 and 45 queries
+    per row, and with the chunks of each row's window around its closest
+    boundary vertex as the selection (pd_topk_chunks = 0)."""
+    kw = dict(use_windowed_pseudo_distance=True, pd_topk_chunks=0) if window else {}
+    env, cbf, state, g = _clf_live(4, 32, C, **kw)
+    from sigmarl_tpu_torch.safety.circles import circle_centers_world
+
+    centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+    q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id, state.idx_left, state.idx_right)
+    assert q.shape[1] == 9 * C and cl.shape[1] == (6 if window else 3)
+    before = pseudo_distance_stencil.launches
+    out = pseudo_distance_stencil(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr)
+    ref = pseudo_distance_stencil_reference(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr)
+    torch.cuda.synchronize()
+    assert pseudo_distance_stencil.launches == before + 1
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
+def test_testing_clf_fp16_step_on_the_card_matches_the_cpu():
+    """One testing-mode, CLF-filtered, fp16-parity step (cpm_mixed, N=4,
+    B=8) from the same state and draws on the card and the CPU, to the
+    tolerances of `utils/card_checks.py::clf_step_card_vs_cpu`: CLF rows
+    and nominal input 1e-5; lane rows 1e-4 except where the two devices'
+    float16 distances differ (at most 1 % of entries); the card's F within a
+    relative 1e-3 of the CPU's; the env step 2e-5 / 1e-4, done equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    checks = clf_step_card_vs_cpu("cuda")
+    assert all(c.ok for c in checks), [c for c in checks if not c.ok]

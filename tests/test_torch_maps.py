@@ -1,21 +1,28 @@
 """Port map tables vs the JAX package's `build_map_tables`."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from sigmarl_tpu.constants import SCENARIOS as JAX_SCENARIOS
 from sigmarl_tpu.env.map_tables import build_map_tables as jax_build
 from sigmarl_tpu.maps.manager import load_map as jax_load_map
+from sigmarl_tpu.maps.manager import parse_map as jax_parse_map
+from sigmarl_tpu_torch.constants import SCENARIOS
 from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.env.map_tables import MapTables, build_map_tables
 from sigmarl_tpu_torch.maps.manager import load_map
 
 torch.set_num_threads(1)
+OSM = sorted(s for s in JAX_SCENARIOS if "cpm" not in s)
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
 
-@pytest.mark.parametrize("scenario", ["cpm_entire", "cpm_mixed"])
+@pytest.mark.parametrize("scenario", ["cpm_entire", "cpm_mixed", "intersection_1", "roundabout_2",
+                                      "on_ramp_2_multilane"])
 def test_map_tables_match_jax(scenario):
     """Every table equals the JAX one: floats to atol 2e-6, integer and
     bool tables exactly, except the spawn boundary indices, whose argmin
@@ -58,5 +65,40 @@ def test_map_tables_move_to_device_field_by_field():
 
 
 def test_unported_scenario_raises():
-    with pytest.raises(NotImplementedError):
-        load_map("intersection_1")
+    """Every scenario of the registry loads (the OSM ones too); an unknown
+    name raises."""
+    with pytest.raises(ValueError, match="unknown scenario"):
+        load_map("intersection_99")
+
+
+def test_osm_parse_matches_golden():
+    """intersection_1 against the golden of the original SigmaRL parser."""
+    g = np.load(os.path.join(GOLDEN, "osm_intersection_1.npz"))
+    m = load_map("intersection_1")
+    assert len(m.reference_paths) == 4
+    for i, p in enumerate(m.reference_paths):
+        np.testing.assert_allclose(p.center_line, g[f"p{i}_center"], atol=1e-4)
+        np.testing.assert_allclose(p.left_boundary, g[f"p{i}_lb"], atol=1e-4)
+        np.testing.assert_allclose(p.right_boundary, g[f"p{i}_rb"], atol=1e-4)
+        assert bool(p.is_loop) == bool(g[f"p{i}_loop"])
+
+
+@pytest.mark.parametrize("lane_width", [None, 0.25])
+def test_osm_parse_matches_jax(lane_width):
+    """Every OSM scenario of the registry (the port's own copies of the
+    files and entries) parses as the JAX package's parser parses it, with
+    the scenario's lane width and with an override: every polyline, flag
+    and index list equal."""
+    assert set(SCENARIOS) == set(JAX_SCENARIOS)
+    for scen in OSM:
+        ours, ref = load_map(scen, lane_width=lane_width), jax_parse_map(scen, lane_width=lane_width)
+        assert ours.neighboring_lanelets_idx == ref.neighboring_lanelets_idx, scen
+        assert ours.bounds == ref.bounds, scen
+        for a, b in zip(ours.lanelets + ours.reference_paths, ref.lanelets + ref.reference_paths,
+                        strict=True):
+            for f in dataclasses.fields(a):
+                x, y = getattr(a, f.name), getattr(b, f.name)
+                if isinstance(y, np.ndarray):
+                    np.testing.assert_array_equal(x, y, err_msg=f"{scen} {f.name}")
+                else:
+                    assert x == y, (scen, f.name)
