@@ -67,17 +67,35 @@ Phases, in order; any failure exits non-zero before the result line:
     128 recorded steps: finite records, single-agent resets counted, the
     JAX function's metric keys, no kernel launched; env-steps/s and the
     share of steps that ran the reset;
+14a. the challenge buffer on phase 9's centralized configuration at its
+    defaults (record 1.0, replay 0.2, 100 slots, records from 10 steps
+    back), 2 iterations: K1 and K2 once per rollout step, solved share 1.0,
+    finite losses, the records and replays of each iteration, a record in
+    the buffer and a replay by the end (else the plain MAPPO iteration at
+    the same width carries that check, and the phase says so); then its
+    record and replay steps on the card against the CPU (N=4, B=8;
+    `utils/card_checks.py`, shared with the card test);
 15. CBF evaluation (`main_eval`'s function at its defaults: cpm_mixed,
     N=4, B=32, CLF nominal, windowed flag set), 128 steps centralized and
     then decentralized: K1 and K2 once per step, solved share 1.0, a
     finite QP infeasibility rate; then 32 steps of the same env and filter
     with pd_topk_chunks = 0, the one setting that takes the windowed
     stencil, through the eval layer's `rollout`, with the same checks;
-16. the ITSC'25 filter sweep (one agent, B=32, CLF at 0.6 m/s) for 1 to 5
-    circles, 32 steps each: K1 at P = 0 and K2 once per step;
+16. the ITSC'25 filter sweep through its driver
+    (`eval/papers.py::itsc25_safety_filter`, one agent, B=32, CLF at 0.6
+    m/s) for 1 to 5 circles, 32 steps each: K1 at P = 0 and K2 once per
+    step, the checks of phase 15 on the record the driver wrote;
 17. CLF-filtered testing at the main path's width (N=15, B=1024, 3+5, 16
     steps), and AT25 (`eval/at25.py::run_model`, scripted, N=15, B=1,
     256 steps from `default_poses`): the event counts;
+17a. the standalone CBF studies: the ECC'25 MTV predictor trained 3 epochs
+    on the card and on the CPU from the same weights and permutations; the
+    ECC'25 grid (`eval/papers.py::ecc25_cbf_grid`, figures off: 60-epoch
+    predictor, RL nominal fit, all eight two-agent runs) on the card, one
+    run against the CPU; the full LCSS'25 sweep
+    (`eval/papers.py::lcss25_ttcbf`, 15 x 15 x 400 steps per grid) on the
+    card against the CPU (collided maps equal); no kernel (plain PyTorch:
+    no TPU kernel computes these); seconds per run;
 18. the kernels on those inputs against their plain versions: K1 with
     active CLF rows (near-zero ones injected) at N=4 and N=15 and at P = 0
     for C = 1, 3 and 5, controls after 0 and 1 iterations bit for bit and
@@ -704,6 +722,77 @@ def filtered_training_phase(dev, smi, workdir) -> dict:
     return out
 
 
+# The challenge-buffer phase: the filtered training iteration at the main
+# path's width with the challenging initial-state buffer on at its
+# defaults (record probability 1.0, replay probability 0.2, 100 slots,
+# records from 10 steps back), over this many iterations.
+CHALLENGE_ITERS = 2
+
+
+def challenge_buffer_phase(dev, smi, workdir) -> dict:
+    """`FILTERED_TRAINING` with `is_challenging_initial_state_buffer` (cpm_entire,
+    N=15, B=1024, T=16, 2+15), 2 iterations from one state, the launch counts
+    set to 0 before each: K1 and K2 launched once per rollout step, solved
+    share 1.0, finite losses and observations; the records and replays of
+    each iteration (the env's device-side counts). After both, at least one
+    record in the buffer (cb_valid > 0) and at least one env that replayed.
+    Should the filter keep every agent apart at this width (nothing
+    recorded), the plain MAPPO iteration at the same width with the buffer
+    on carries the record and replay check, and the phase says so. Returns
+    per iteration its launches, seconds, frames/s, records and replays."""
+    import torch
+
+    from sigmarl_tpu_torch import MAPPOCAVs, Parameters
+
+    def run(kw, what, filtered):
+        p = Parameters(**kw, is_challenging_initial_state_buffer=True, n_iters=CHALLENGE_ITERS,
+                       device=dev, where_to_save=os.path.join(workdir, "challenge") + "/")
+        tr = MAPPOCAVs(p)
+        state = tr.initial_state()
+        iters = []
+        for i in range(CHALLENGE_ITERS):
+            before = tr.env.challenge_counts.clone()
+            zero_launch_counts()
+            state, m = tr.train_iteration(state)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            records, replays = (tr.env.challenge_counts - before).tolist()
+            print_iteration(what, i, m, p.frames_per_batch, smi)
+            check(_finite_losses(m) and bool(torch.isfinite(state.obs).all()),
+                  f"non-finite obs, reward or loss in {what}")
+            want = p.max_steps if filtered else 0
+            check(all(n == want for n in launches.values()),
+                  f"{what} launched {launches} in {p.max_steps} steps")
+            if filtered:
+                solved = float(m["cbf_solved_share"])
+                check(solved == 1.0, f"{what} solved share {solved}")
+            r = m["seconds_rollout"]
+            iters.append(dict(launches=launches, records=records, replays=replays,
+                              seconds=m["seconds_rollout"] + m["seconds_gae"] + m["seconds_update"],
+                              rollout_frames_per_s=p.frames_per_batch / r))
+            print(f"{what} iteration {i + 1}: launches {launches}, {records} states recorded, "
+                  f"{replays} env resets replayed a record, cb_valid "
+                  f"{int(state.env_state.cb_valid)}")
+        return iters, int(state.env_state.cb_valid)
+
+    out = {}
+    out["filtered"], valid = run(FILTERED_TRAINING, "challenge buffer, CBF-filtered (N=15, "
+                                 "B=1024)", True)
+    replays = sum(it["replays"] for it in out["filtered"])
+    out["carried_by"] = "filtered"
+    if valid == 0 or replays == 0:
+        print(f"challenge buffer: the filtered iterations recorded {valid} states and replayed "
+              f"{replays}; the plain MAPPO iteration at the same width carries the check")
+        plain = {**FILTERED_TRAINING, "rew_method": "distance", "is_using_cbf_training": False,
+                 "is_solve_qp": False, "is_apply_cbf_action": False}
+        out["plain"], valid = run(plain, "challenge buffer, plain MAPPO (N=15, B=1024)", False)
+        replays = sum(it["replays"] for it in out["plain"])
+        out["carried_by"] = "plain"
+    check(valid > 0, "the challenge buffer holds no record after the phase")
+    check(replays > 0, "no env replayed a record in the challenge-buffer phase")
+    return out
+
+
 def ppo_update_check(dev) -> None:
     """One PPO minibatch update on the card against the CPU at a small
     size (cpm_mixed, N=4, the 3x256 networks, 64 frames), from the same
@@ -1160,30 +1249,61 @@ def windowed_eval_run(smi: str) -> dict:
     return dict(res, pd=(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr))
 
 
-def itsc25_phase(smi: str) -> dict:
-    """The ITSC'25 filter sweep (`sigmarl_tpu/eval/papers.py:215-262`:
-    cpm_mixed, one agent, B=32, testing mode, the CLF controller, 0.6 m/s)
-    for C = 1..5 circles, 32 of the paper's 600 steps each: K1 at P = 0 and
-    K2 once per step. Returns per C the numbers and the kernels' inputs."""
+def itsc25_phase(smi: str, workdir: str) -> dict:
+    """The ITSC'25 filter sweep through its driver
+    (`sigmarl_tpu_torch/eval/papers.py::itsc25_safety_filter`: cpm_mixed, one
+    agent, B=32, testing mode, the CLF controller, 0.6 m/s), one circle count
+    at a time for C = 1..5, 32 of the paper's 600 steps each, the launch
+    counts set to 0 before each: K1 at P = 0 and K2 once per step, the
+    checks of `check_eval_run` on the record the driver wrote. Then the
+    kernels' inputs of a live state of the same env and filter. Returns per
+    C the numbers and those inputs."""
+    import numpy as np
+
     from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, Parameters, make_env
+    from sigmarl_tpu_torch.eval import metrics as M
+    from sigmarl_tpu_torch.eval import papers
     from sigmarl_tpu_torch.safety.circles import circle_centers_world
 
     out = {}
     for C in (1, 2, 3, 4, 5):
+        d = os.path.join(workdir, "itsc25")
+        zero_launch_counts()
+        res = papers.itsc25_safety_filter(out_dir=d, device="cuda", max_steps=ITSC_STEPS,
+                                          circles=(C,))[f"n_circles={C}"]
+        launches = launch_counts()
+        record = dict(np.load(os.path.join(d, f"out_td_c{C}.npz")))
+        what = f"ITSC'25 sweep (papers.itsc25_safety_filter), C={C}"
+        check(set(res) == set(M.basic_metrics(record)) | {
+            "timing_steps_per_s", "timing_wall_time_s", "timing_time_per_step_ms", "reset_share"},
+            f"{what} results {sorted(res)}")
+        check_record(record, what)
+        solved = float(record["cbf_solved"].mean())
+        check(launches == {"qp_newton": ITSC_STEPS, "boundary_stencil": ITSC_STEPS},
+              f"{what} launched {launches} in {ITSC_STEPS} steps")
+        check(solved == 1.0, f"{what} solved share {solved}")
+        check(math.isfinite(res["qp_infeasibility_rate"]), f"{what} infeasibility rate")
+        print(f"{what}: {ITSC_STEPS} steps, {res['timing_steps_per_s']:.1f} env-steps/s, launches "
+              f"{launches}, solved share {solved:.6f}, QP infeasibility rate "
+              f"{res['qp_infeasibility_rate']:.4f}, the reset ran in a share "
+              f"{res['reset_share']:.3f} of the steps, {single_agent_resets(record)} single-agent "
+              f"resets; on {smi}")
         p = Parameters(scenario_type="cpm_mixed", n_agents=1, num_vmas_envs=32, dt=0.1,
                        max_steps=ITSC_STEPS, is_use_mtv_distance=False, is_obs_noise=False,
                        is_testing_mode=True, n_circles_approximate_vehicle=C, device="cuda")
         env = make_env(p)
         cbf = CBFSafetyFilter(CBFConfig(n_agents=1, n_circles=C, dt=0.1, nom_controller_type="clf"),
                               env.cfg, env.tables, device=env.device)
-        res = eval_rollout(env, cbf, ITSC_STEPS, 0.6, f"ITSC'25 sweep, C={C}", smi)
         state = filtered_state(env, cbf)
         qp = clf_qp_capture(cbf, state)
         check(qp[0][1].shape[-1] == 0 and qp[0][0].shape[-1] == 2 * C + 2,
               f"C={C}: K1's input is not one agent with 2C+2 rows")
         centers = circle_centers_world(cbf.approx, state.pos, state.rot)
         q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id)
-        out[C] = dict(res, qp=qp, qp_near_zero=near_zero_clf_rows(*qp, cbf, state, seed=C),
+        out[C] = dict(launches=launches, steps_per_s=res["timing_steps_per_s"],
+                      reset_share=res["reset_share"], solved_share=solved,
+                      qp_infeasibility_rate=res["qp_infeasibility_rate"], qp=qp,
+                      qp_near_zero=near_zero_clf_rows(*qp, cbf, state, seed=C),
                       pd=(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr))
     return out
 
@@ -1235,6 +1355,122 @@ def at25_phase(smi: str) -> dict:
     return dict(res, launches=launches)
 
 
+# The ECC'25 predictor's card-vs-CPU training check: a few epochs from the
+# same initial weights and permutations on the full 41^3 grid.
+SM_CHECK_EPOCHS = 3
+
+
+def ecc_lcss_phase(smi: str, workdir: str) -> dict:
+    """The standalone CBF studies on the card.
+
+    - ECC'25 (`safety/sm_predictor.py`): the MTV predictor trained for 3
+      epochs on the card and on the CPU from the same initial weights and
+      permutations: train and validation losses to a relative 1e-4, weights
+      to 1e-4 (float32 sums of 4096-row batches in other orders);
+    - ECC'25 (`eval/papers.py::ecc25_cbf_grid`, figures off): all eight
+      `run_demo` runs of the paper's grid on the card, its predictor trained
+      on the card for 60 epochs and its RL nominal fitted there; every run
+      finite; the overtaking "mtv" run with the 3-epoch predictor on the card
+      and on the CPU: collided equal, h_min to 1e-5 and the states over the
+      interaction (the first 80 steps) to 1e-3;
+    - LCSS'25 (`eval/papers.py::lcss25_ttcbf`, figures off): the full 15 x 15
+      sweeps, 400 steps, of both relative degrees and approaches on the card,
+      each again on the CPU: collided maps equal, h_min to 1e-4 relative.
+
+    Returns the seconds of each run."""
+    import numpy as np
+    import torch
+
+    from sigmarl_tpu_torch.eval import papers
+    from sigmarl_tpu_torch.safety import cbf_demo, hocbf_taylor
+    from sigmarl_tpu_torch.safety.sm_predictor import (
+        DistancePredictor, SafetyMarginEstimatorModule, sm_predictor_from_jax_params,
+        to_jax_params,
+    )
+
+    out = {}
+    n = 41 ** 3
+    n_tr = n - int(n * 0.1)
+    g = torch.Generator().manual_seed(0)
+    perm = torch.randperm(n, generator=g)
+    epoch_perms = [torch.randperm(n_tr, generator=g) for _ in range(SM_CHECK_EPOCHS)]
+    init = to_jax_params(DistancePredictor(device="cpu", seed=3))
+    mods = {}
+    for dev in ("cuda", "cpu"):
+        m = SafetyMarginEstimatorModule(device=dev)
+        t0 = time.perf_counter()
+        m.train(epochs=SM_CHECK_EPOCHS, init_net=sm_predictor_from_jax_params(init, device=dev),
+                perm=perm, epoch_perms=epoch_perms)
+        mods[dev] = (m, time.perf_counter() - t0)
+    (mg, sg), (mc, sc) = mods["cuda"], mods["cpu"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(
+        mg.train_losses_history + mg.val_losses_history,
+        mc.train_losses_history + mc.val_losses_history))
+    w_gap = max(float(np.abs(a - b).max()) for a, b in zip(
+        [v for d in to_jax_params(mg.net)["params"].values() for v in d.values()],
+        [v for d in to_jax_params(mc.net)["params"].values() for v in d.values()]))
+    print(f"ECC'25 predictor, {SM_CHECK_EPOCHS} epochs on the 41^3 grid: card {sg:.2f} s, CPU "
+          f"{sc:.2f} s; losses card vs CPU relative {gap:.3e} (<= 1e-4), weights {w_gap:.3e} "
+          f"(<= 1e-4); val loss {mg.val_losses_history[-1]:.6f}")
+    check(gap <= 1e-4 and w_gap <= 1e-4, f"the predictor's card and CPU training part: {gap}, {w_gap}")
+    out["sm_predictor_epoch_s"] = {"cuda": sg / SM_CHECK_EPOCHS, "cpu": sc / SM_CHECK_EPOCHS}
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    ecc = papers.ecc25_cbf_grid(out_dir=os.path.join(workdir, "ecc25"), device="cuda",
+                                figures=False)
+    out["ecc25_s"] = time.perf_counter() - t0
+    check(launch_counts() == {"qp_newton": 0, "boundary_stencil": 0}, "the ECC'25 grid launched")
+    runs = {k: v for k, v in ecc.items() if "h_min" in v}
+    check(len(runs) == 8 and all(math.isfinite(v["h_min"]) for v in runs.values()),
+          f"ECC'25 runs {sorted(runs)}")
+    for k, v in runs.items():
+        print(f"ECC'25 {k}: h_min {v['h_min']:.6f}, collided {v['collided']}, "
+              f"{v['seconds']:.2f} s on the card")
+    print(f"ECC'25 grid (predictor {ecc['sm_predictor']['seconds']:.2f} s for 60 epochs, RL "
+          f"nominal fit {ecc['rl_nominal_fit']['seconds']:.2f} s): {out['ecc25_s']:.1f} s in all; "
+          f"on {smi}")
+    out["ecc25"] = {k: v["seconds"] for k, v in runs.items()}
+    out["ecc25_fits_s"] = {"sm_predictor_60_epochs": ecc["sm_predictor"]["seconds"],
+                           "rl_nominal_400_steps": ecc["rl_nominal_fit"]["seconds"]}
+    # One run of the grid again on the CPU, with the same predictor (the
+    # card-trained one of the check above, its weights copied).
+    cfg = cbf_demo.CBFDemoConfig(scenario="overtaking", sm_type="mtv")
+    mc.net = sm_predictor_from_jax_params(to_jax_params(mg.net), device="cpu")
+    tg = cbf_demo.run_demo(cfg, sm_module=mg, device="cuda")
+    tc = cbf_demo.run_demo(cfg, sm_module=mc, device="cpu")
+    st_gap = max(float(np.abs(tg[k][:80] - tc[k][:80]).max()) for k in ("ego", "other"))
+    print(f"ECC'25 overtaking/mtv, card vs CPU: collided {tg['collided']} / {tc['collided']}, "
+          f"h_min {tg['h_min']:.6f} / {tc['h_min']:.6f}, states over 80 steps {st_gap:.3e} (<= 1e-3)")
+    check(tg["collided"] == tc["collided"] and abs(tg["h_min"] - tc["h_min"]) <= 1e-5
+          and st_gap <= 1e-3, "the ECC'25 run on the card parts from the CPU's")
+
+    t0 = time.perf_counter()
+    lcss = papers.lcss25_ttcbf(out_dir=os.path.join(workdir, "lcss25"), device="cuda",
+                               figures=False)
+    out["lcss25_s"] = time.perf_counter() - t0
+    out["lcss25"] = {}
+    for key, res in lcss.items():
+        deg, appr = key.split("/")
+        cfg = hocbf_taylor.HOCBFConfig(relative_degree=int(deg[3:]), approach=appr, num_steps=400,
+                                       lambda_1=0.5 if appr == "taylor" else 3.0, lambda_2=3.0)
+        grid = dict(np.load(os.path.join(workdir, "lcss25", f"heatmap_{deg}_{appr}.npz")))
+        t0 = time.perf_counter()
+        ref = hocbf_taylor.run_experiment_multi_parameters(
+            cfg, grid["lambda_1"][:, 0], grid["dt"][0], device="cpu")
+        cpu_s = time.perf_counter() - t0
+        h, h_ref = grid["h_min"], ref["h_min"]
+        h_gap = float((np.abs(h - h_ref) / np.maximum(1.0, np.abs(h_ref))).max())
+        same = bool((grid["collided"] == ref["collided"]).all())
+        print(f"LCSS'25 {key}, 15 x 15 x 400 steps: {res['seconds']:.2f} s on the card, "
+              f"{cpu_s:.2f} s on the CPU; collision fraction {res['collision_fraction']:.4f}, "
+              f"collided maps equal {same}, h_min relative {h_gap:.3e} (<= 1e-4)")
+        check(same and h_gap <= 1e-4, f"LCSS'25 {key}: the card parts from the CPU")
+        out["lcss25"][key] = {"cuda_s": res["seconds"], "cpu_s": cpu_s}
+    print(f"LCSS'25 sweep: {out['lcss25_s']:.1f} s on the card in all; on {smi}")
+    return out
+
+
 def eval_kernel_checks(evals, itsc, wide) -> dict:
     """K1 and K2 against their plain versions on the evaluation path's
     inputs: K1 with active CLF rows (near-zero ones included) at N=4 and
@@ -1266,6 +1502,20 @@ def eval_kernel_checks(evals, itsc, wide) -> dict:
               f"K2 {label} differs by {err}")
         errs["boundary_stencil " + label] = err
     return errs
+
+
+def challenge_small_check(dev) -> None:
+    """The challenge buffer's record and replay steps (cpm_mixed, N=4, B=8)
+    on the card against the CPU from the same state and draws, to the
+    tolerances of `utils/card_checks.py::challenge_buffer_steps_card_vs_cpu`
+    (which the card test shares)."""
+    from sigmarl_tpu_torch.utils.card_checks import challenge_buffer_steps_card_vs_cpu
+
+    checks = challenge_buffer_steps_card_vs_cpu(dev)
+    print("challenge buffer record and replay steps (N=4, B=8), card vs CPU: " + "; ".join(
+        f"{c.what} {c.value:.3g} (<= {c.limit:g})" for c in checks))
+    for c in checks:
+        check(c.ok, f"card vs CPU: {c.what} {c.value} above {c.limit}")
 
 
 def clf_small_check(dev) -> None:
@@ -1398,11 +1648,14 @@ def main() -> int:
         xpmarl = xpmarl_training_phase(dev, smi, wd)
         wide = wide_xpmarl_phase(dev, smi, wd)
         testing = testing_phase(filtered["model_dir"], smi)
-    xpmarl_small_check(dev)
-    evals = cbf_eval_phase(smi)
-    itsc = itsc25_phase(smi)
-    wide_clf = wide_clf_phase(smi)
-    at25_run = at25_phase(smi)
+        challenge = challenge_buffer_phase(dev, smi, wd)
+        xpmarl_small_check(dev)
+        challenge_small_check(dev)
+        evals = cbf_eval_phase(smi)
+        itsc = itsc25_phase(smi, wd)
+        wide_clf = wide_clf_phase(smi)
+        at25_run = at25_phase(smi)
+        ecc_lcss_phase(smi, wd)
     eval_errs = eval_kernel_checks(evals, itsc, wide_clf)
     clf_small_check(dev)
 
@@ -1415,6 +1668,8 @@ def main() -> int:
                  "opponent_modeling": xpmarl["opponent modeling"][k],
                  "xpmarl_cbf_filtered_wide": wide[k],
                  "testing": testing["launches"][k],
+                 **{f"challenge_buffer_{what}_iteration_{i + 1}": it["launches"][k]
+                    for what in ("filtered", "plain") for i, it in enumerate(challenge.get(what, []))},
                  "cbf_eval_centralized": evals["centralized"]["launches"][k],
                  "cbf_eval_decentralized": evals["decentralized"]["launches"][k],
                  "cbf_eval_windowed": evals["windowed"]["launches"][k],

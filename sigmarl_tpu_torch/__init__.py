@@ -5,11 +5,14 @@ OSM maps, training and testing mode), the CBF-QP safety filter
 (centralized, decentralized, grouped or margins-only; RL or CLF nominal
 controller), MAPPO training (`rl/`, `python -m
 sigmarl_tpu_torch.main_training`; plain, CBF-filtered or CBF-informed
-rollouts, XP-MARL priorities, opponent modeling, the learned-CBF module)
-and testing and evaluation (`eval/`, `python -m
-sigmarl_tpu_torch.main_testing`, `.main_eval`, `.main_eval_parallel`) on
-tensors, with the two hot kernels written in CUDA for Hopper
-(`ops/qp.py`, `ops/boundary.py`, sources under `csrc/`). Entry points run
+rollouts, XP-MARL priorities, opponent modeling, the learned-CBF module,
+the challenging initial-state buffer), testing and evaluation (`eval/`,
+`python -m sigmarl_tpu_torch.main_testing`, `.main_eval`,
+`.main_eval_parallel`, the paper drivers `.eval.papers`), host-side
+rendering (`render.py`) and the standalone ECC'25 and LCSS'25 CBF studies
+(`safety/{sm_predictor,cbf_demo,hocbf_taylor}.py`) on tensors, with the
+two hot kernels written in CUDA for Hopper (`ops/qp.py`, `ops/boundary.py`,
+sources under `csrc/`). Entry points run
 on `cuda` unless the caller passes `device="cpu"`, where every kernel runs
 its plain PyTorch version. The package imports nothing of JAX.
 """

@@ -9,7 +9,9 @@ struct-of-tensors state `[B, N, ...]`, with auto-reset folded in:
    under `debug_numerics` a non-finite reward raises)
 4. state-buffer push, short-term path refresh
 5. done logic (in testing mode an agent that collides or reaches its
-   entry or exit is reset alone), masked auto-reset
+   entry or exit is reset alone); with the challenging initial-state
+   buffer on, the record of envs with an agent-agent collision; masked
+   auto-reset
 6. observation of the post-reset state
 
 `reset_predefined` and `reset_from_poses` start every env from given
@@ -60,6 +62,9 @@ class RoadTrafficEnv:
         self.weighting_ref = torch.as_tensor(w / w.sum(), device=device)
         # Steps in which the masked reset ran (counted on the host).
         self.reset_steps = 0
+        # With the challenge buffer on: states recorded and full-env resets
+        # that replayed a record, accumulated on the device (no host sync).
+        self.challenge_counts = torch.zeros(2, dtype=torch.int64, device=device)
 
     @property
     def obs_dim(self) -> int:
@@ -107,8 +112,10 @@ class RoadTrafficEnv:
         steering target). The reset's random numbers come from
         `reset_draws` or else from `generator`, and are drawn only when an
         env resets; the observation noise's uniforms [B, N, obs_dim] from
-        `obs_noise` or else from `generator`. Returns (state', obs
-        [B,N,obs_dim], reward [B,N], done [B], info)."""
+        `obs_noise` or else from `generator`. With the challenge buffer on,
+        the record's uniform is `reset_draws.record_u` or else drawn from
+        `generator` every step. Returns (state', obs [B,N,obs_dim], reward
+        [B,N], done [B], info)."""
         cfg, tables = self.cfg, self.tables
         prev_pos = latest_state_record(state)[..., 0:2]
         prev_short_term = state.short_term
@@ -153,13 +160,20 @@ class RoadTrafficEnv:
             applied_action=state.applied_action,
             terminal_step=state.step,
         )
+        if cfg.is_challenging_initial_state_buffer:
+            record_u = None if reset_draws is None else reset_draws.record_u
+            if record_u is None:
+                record_u = torch.rand((), generator=generator, device=self.device)
+            state, n_recorded = record_challenging_states(cfg, state, record_u)
+            self.challenge_counts[0] += n_recorded
         # The host reads whether any env resets (one device sync per step)
         # and runs the masked full-width reset only then.
         if bool(reset_mask.any()):
             self.reset_steps += 1
             if reset_draws is None:
-                reset_draws = ResetDraws.sample(cfg, generator, self.device)
-            state = apply_reset(cfg, tables, state, reset_mask, reset_draws)
+                reset_draws = ResetDraws.sample(cfg, generator, self.device, state.cb_valid)
+            state = apply_reset(cfg, tables, state, reset_mask, reset_draws,
+                                replay_count=self.challenge_counts[1:])
         # 6. observation of the (possibly reset) state; the history slots of
         # the agents just reset are refilled with the new episode's features.
         obs, state = observe_with_history(
@@ -271,19 +285,49 @@ class RoadTrafficEnv:
         return done, reset_mask
 
 
+def record_challenging_states(
+    cfg: EnvConfig, state: WorldState, record_u: Tensor
+) -> Tuple[WorldState, Tensor]:
+    """Write the state from `n_steps_stored` steps back of every env with an
+    agent-agent collision into the ring of `challenge_buffer_size` records,
+    in env order, when `record_u <= probability_record` (the JAX package's
+    sequential scan over envs). Where more envs record than the ring has
+    slots, the later env wins: only the last `challenge_buffer_size`
+    recording envs write, so no two writes share a slot. No host sync.
+    Returns (state, number of envs that recorded [] on the device)."""
+    B, C = cfg.batch_dim, cfg.challenge_buffer_size
+    dev = state.pos.device
+    collided = state.coll_agents.reshape(B, -1).any(-1)
+    do = collided & (record_u <= cfg.probability_record)
+    slot_old = (state.sb_pointer.long() % cfg.n_steps_stored).reshape(1)
+    oldest = state.state_buffer.index_select(0, slot_old)[0]  # [B, N, 8]
+    count = torch.cumsum(do.to(torch.int64), 0)
+    total = count[-1]
+    rank = count - 1
+    keep = do & (rank >= total - C)
+    slot = (state.cb_pointer.long() + rank) % C
+    hit = keep[:, None] & (slot[:, None] == torch.arange(C, device=dev)[None])  # [B, C]
+    env_idx = torch.arange(B, device=dev)[:, None].expand(B, C)
+    writer = torch.where(hit, env_idx, torch.full_like(env_idx, -1)).amax(0)  # [C]
+    buf = torch.where((writer >= 0)[:, None, None], oldest[torch.clamp(writer, min=0)],
+                      state.challenge_buffer)
+    return replace_state(
+        state,
+        challenge_buffer=buf,
+        cb_pointer=((state.cb_pointer.long() + total) % C).to(torch.int32),
+        cb_valid=torch.clamp(state.cb_valid.long() + total, max=C).to(torch.int32),
+    ), total
+
+
 REWARD_METHODS = (
     "distance", "ttc", "cbf", "sparse", "distance_sparse", "ttc_sparse", "cbf_sparse"
 )
 
 
 def _check_ported(p: Parameters) -> None:
-    unported = {
-        "the challenging initial-state buffer": p.is_challenging_initial_state_buffer,
-        f"the {p.rew_method!r} reward method": p.rew_method not in REWARD_METHODS,
-    }
-    for what, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported to the PyTorch environment")
+    if p.rew_method not in REWARD_METHODS:
+        raise NotImplementedError(
+            f"the {p.rew_method!r} reward method is not ported to the PyTorch environment")
 
 
 def make_env(parameters: Parameters, device: str | torch.device | None = None) -> RoadTrafficEnv:

@@ -6,6 +6,10 @@ agents already placed (the last candidate when none is). Agents are placed
 in order, vectorized over envs. The reset runs at full width over all envs
 (masked).
 
+With the challenging initial-state buffer on, a full-env reset replays a
+recorded state instead, with probability `probability_use_recording`, and
+the derived geometry is recomputed from the poses.
+
 Every random number the reset consumes arrives in a `ResetDraws`, so tests
 can feed it the JAX package's draws; `ResetDraws.sample` draws them from a
 `torch.Generator`.
@@ -22,6 +26,7 @@ from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state, 
 from sigmarl_tpu_torch.env.updates import (
     push_state_buffer,
     refresh_geometry_after_reset,
+    update_geometry,
     update_short_term_paths,
 )
 
@@ -37,15 +42,31 @@ class ResetDraws:
     path_u: [B, N, T] uniforms choosing each candidate's path.
     point_u: [B, N, T] uniforms choosing each candidate's spawn point.
     speed_u: [B, N] uniforms scaling the spawn speed.
+
+    With the challenging initial-state buffer on (None otherwise):
+    use_u: [B] uniforms deciding which full-env resets replay a record.
+    pick: [B] int, the buffer slot each env replays; or [CB, B], whose row
+        v - 1 holds the picks for v valid records (a test passes the JAX
+        package's `randint` draws for every count so).
+    record_u: [] the step's uniform compared with `probability_record`
+        (drawn every step, reset or not; `RoadTrafficEnv.step` reads it).
     """
 
     scenario_gumbel: Tensor | None
     path_u: Tensor
     point_u: Tensor
     speed_u: Tensor
+    use_u: Tensor | None = None
+    pick: Tensor | None = None
+    record_u: Tensor | None = None
 
     @classmethod
-    def sample(cls, cfg: EnvConfig, generator: torch.Generator, device) -> "ResetDraws":
+    def sample(
+        cls, cfg: EnvConfig, generator: torch.Generator, device, cb_valid: Tensor | None = None
+    ) -> "ResetDraws":
+        """Draw a reset's random numbers; `cb_valid` (the state's count of
+        valid records, on the device) bounds the replay pick, which is
+        drawn as floor(u * max(cb_valid, 1)) without a host sync."""
         B, N, T = cfg.batch_dim, cfg.n_agents, cfg.max_spawn_tries
 
         def u(*shape):
@@ -54,7 +75,13 @@ class ResetDraws:
         gumbel = None
         if cfg.scenario_type == "cpm_mixed":
             gumbel = -torch.log(-torch.log(u(B, 3).clamp(min=1e-20)))
-        return cls(gumbel, u(B, N, T), u(B, N, T), u(B, N))
+        draws = cls(gumbel, u(B, N, T), u(B, N, T), u(B, N))
+        if cfg.is_challenging_initial_state_buffer:
+            n = torch.clamp(cb_valid if cb_valid is not None
+                            else torch.zeros((), dtype=torch.int32, device=device), min=1)
+            draws.use_u = u(B)
+            draws.pick = torch.minimum((u(B) * n).to(torch.int64), (n - 1).to(torch.int64))
+        return draws
 
 
 def _sample_scenario_ids(cfg: EnvConfig, draws: ResetDraws, B: int, device) -> Tensor:
@@ -146,9 +173,13 @@ def spawn_positions(
 
 
 def apply_reset(
-    cfg: EnvConfig, tables: MapTables, state: WorldState, reset_mask: Tensor, draws: ResetDraws
+    cfg: EnvConfig, tables: MapTables, state: WorldState, reset_mask: Tensor, draws: ResetDraws,
+    replay_count: Tensor | None = None,
 ) -> WorldState:
-    """(Re)spawn the masked agents and refresh all derived state."""
+    """(Re)spawn the masked agents and refresh all derived state. With the
+    challenge buffer on, `replay_count` (a one-element int64 tensor on the
+    device), when given, is raised in place by the number of envs that
+    replayed a record."""
     B, N = state.pos.shape[:2]
     dev = state.pos.device
     full_env_reset = reset_mask.all(-1)
@@ -160,6 +191,13 @@ def apply_reset(
     )
     speed_new = draws.speed_u * cfg.max_speed
     vel_new = torch.stack([speed_new * torch.cos(rot), speed_new * torch.sin(rot)], dim=-1)
+    if cfg.is_challenging_initial_state_buffer:
+        use, (pos, rot, speed_new, vel_new, path_id, point_id, scenario_id_env) = _replay_records(
+            cfg, state, draws, full_env_reset, reset_mask,
+            pos, rot, speed_new, vel_new, path_id, point_id, scenario_id_env,
+        )
+        if replay_count is not None:
+            replay_count += use.sum()
 
     m = reset_mask
     m2 = m[..., None]
@@ -177,8 +215,13 @@ def apply_reset(
         scenario_id=torch.where(m, scenario_id_env[:, None], state.scenario_id),
         step=torch.where(full_env_reset, torch.zeros_like(state.step), state.step),
     )
-    # Spawned poses are spawn-table entries: derived geometry is a gather.
-    state = refresh_geometry_after_reset(cfg, tables, state, reset_mask)
+    if cfg.is_challenging_initial_state_buffer:
+        # Replayed poses are arbitrary: recompute the derived geometry (the
+        # collision flags are cleared below for the envs that reset).
+        state = update_geometry(cfg, tables, state, skip_collisions=True)
+    else:
+        # Spawned poses are spawn-table entries: derived geometry is a gather.
+        state = refresh_geometry_after_reset(cfg, tables, state, reset_mask)
     state = update_short_term_paths(cfg, tables, state, at_reset=True)
     # Envs with any reset clear their collision flags.
     env_any = m.any(-1)
@@ -190,6 +233,35 @@ def apply_reset(
         coll_exit=state.coll_exit & ~env_any[:, None],
     )
     return push_state_buffer(state)
+
+
+def _replay_records(cfg, state, draws, full_env_reset, reset_mask,
+                    pos, rot, speed, vel, path_id, point_id, scenario_id_env):
+    """Replace the spawned poses of the full-env resets that replay a
+    recorded state (record rows [x, y, rot, vx, vy, scenario, path, point]).
+    The speed is the recorded velocity's norm (the reference leaves it
+    stale; a documented divergence the JAX package makes too). Returns
+    (which envs replay [B], the replaced fields)."""
+    if draws.use_u is None or draws.pick is None:
+        raise ValueError("the challenge buffer's reset needs ResetDraws.use_u and .pick")
+    valid = state.cb_valid
+    use = (draws.use_u < cfg.probability_use_recording) & full_env_reset & (valid >= 1)
+    pick = draws.pick
+    if pick.dim() == 2:
+        pick = pick[torch.clamp(valid.long() - 1, min=0)]
+    rec = state.challenge_buffer[pick.long()]  # [B, N, 8]
+    m = use[:, None] & reset_mask
+    m2 = m[..., None]
+    vel_rec = rec[..., 3:5]
+    return use, (
+        torch.where(m2, rec[..., 0:2], pos),
+        torch.where(m, rec[..., 2], rot),
+        torch.where(m, torch.sqrt((vel_rec * vel_rec).sum(-1)), speed),
+        torch.where(m2, vel_rec, vel),
+        torch.where(m, rec[..., 6].to(torch.int32), path_id),
+        torch.where(m, rec[..., 7].to(torch.int32), point_id),
+        torch.where(use, rec[:, 0, 5].to(torch.int32), scenario_id_env),
+    )
 
 
 def initial_state(

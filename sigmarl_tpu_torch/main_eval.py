@@ -3,14 +3,18 @@
     python -m sigmarl_tpu_torch.main_eval [--model_path DIR] [--scenario_type cpm_mixed]
         [--n_agents 4] [--num_envs 32] [--max_steps 600] [--n_circles 3]
         [--nom_controller_type {rl,clf}] [--decentralized] [--no_cbf] ...
-        [--device {cuda,cpu}]
+        [--save_video] [--device {cuda,cpu}]
 
 A testing-mode rollout through the CBF-QP filter (centralized or
 decentralized, optionally grouped; RL or CLF nominal controller), saving
 the rollout record (`out_td_<tag>.npz`), the metrics with the timing
 (`computation_t_<tag>.json`) and printing them, the QP infeasibility rate
-included. The options are those of the JAX package's `main_eval.py`; the
-device is `cuda` unless `--device cpu` is given.
+included; `--save_video` renders env 0 of the record on the host, with
+the filter's interventions as pairs of action arrows, to
+`video_<tag>.mp4` (needs matplotlib and OpenCV, and raises before the
+rollout where either is missing). The options are those of the JAX
+package's `main_eval.py`; the device is `cuda` unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import render
 from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.env.env import make_env
 from sigmarl_tpu_torch.eval import metrics as M
@@ -112,13 +117,14 @@ def evaluate(args):
 def main(argv=None):
     args = parse_args(argv)
     if args.save_video:
-        raise NotImplementedError(
-            "--save_video needs the render module (render.py), which the port has not ported yet"
-        )
+        render.require_video()
     result, record, _, _ = evaluate(args)
     os.makedirs(args.out_dir, exist_ok=True)
     tag = run_tag(args)
     np.savez_compressed(os.path.join(args.out_dir, f"out_td_{tag}.npz"), **record)
+    if args.save_video:
+        render.save_rollout_video(args.scenario_type, record,
+                                  os.path.join(args.out_dir, f"video_{tag}.mp4"))
     with open(os.path.join(args.out_dir, f"computation_t_{tag}.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result, indent=1))

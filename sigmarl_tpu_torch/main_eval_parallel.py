@@ -4,8 +4,10 @@
         [--scenarios cpm_mixed ...] [--sweep_cbf] [--jobs 1] [--device {cuda,cpu}]
 
 Builds the grid (seeds x scenarios x CBF on/off) and launches one
-`python -m sigmarl_tpu_torch.main_eval` run per cell: one after another
-on one card, or with `--jobs > 1` that many at a time on the CPU.
+`python -m sigmarl_tpu_torch.main_eval` run per cell, one after another
+or with `--jobs > 1` that many at a time. Every run goes to `--device`
+(`cuda` unless `--device cpu` is given): with `--jobs > 1` on the card,
+that many processes share it.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def build_grid(args):
-    device = "cpu" if args.jobs > 1 else args.device
     grid = []
     for seed, scenario, cbf in itertools.product(
         range(args.n_seeds), args.scenarios, [False, True] if args.sweep_cbf else [True]
@@ -34,7 +35,7 @@ def build_grid(args):
             "--max_steps", str(args.max_steps),
             "--seed", str(seed),
             "--out_dir", args.out_dir,
-            "--device", device,
+            "--device", args.device,
         ]
         if not cbf:
             cmd.append("--no_cbf")

@@ -1,13 +1,17 @@
 """Testing entry point of the PyTorch port.
 
     python -m sigmarl_tpu_torch.main_testing <model_dir> [--max_steps 1200]
-        [--num_envs 32] [--seed 0] [--deterministic] [--device {cuda,cpu}]
+        [--num_envs 32] [--seed 0] [--deterministic] [--save_video]
+        [--device {cuda,cpu}]
 
 Loads a trained model directory (its JSON sidecar restores the training
 configuration), switches to testing mode, runs a recorded rollout, saves
 the record (`out_td_seed<seed>.npz` in the model directory) and prints the
-metrics. The options are those of the JAX package's `main_testing.py`;
-the device is `cuda` unless `--device cpu` is given.
+metrics; `--save_video` renders env 0 of the record on the host to
+`video_seed<seed>.mp4` there (needs matplotlib and OpenCV, and raises
+before the rollout where either is missing). The options are those of the
+JAX package's `main_testing.py`; the device is `cuda` unless `--device
+cpu` is given.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import render
 from sigmarl_tpu_torch.env.env import make_env
 from sigmarl_tpu_torch.eval import metrics as M
 from sigmarl_tpu_torch.eval.evaluation_base import load_model_dir
@@ -57,15 +62,17 @@ def test_model(path: str, max_steps: int, num_envs: int, seed: int, deterministi
 def main(argv=None):
     args = parse_args(argv)
     if args.save_video:
-        raise NotImplementedError(
-            "--save_video needs the render module (render.py), which the port has not ported yet"
-        )
-    result, record, _ = test_model(args.path, args.max_steps, args.num_envs, args.seed,
-                                   args.deterministic, args.device)
+        render.require_video()
+    result, record, env = test_model(args.path, args.max_steps, args.num_envs, args.seed,
+                                     args.deterministic, args.device)
     out_file = os.path.join(args.path, f"out_td_seed{args.seed}.npz")
     np.savez_compressed(out_file, **record)
     print(json.dumps(result, indent=1))
     print(f"rollout record saved to {out_file}")
+    if args.save_video:
+        video_file = os.path.join(args.path, f"video_seed{args.seed}.mp4")
+        render.save_rollout_video(env.cfg.scenario_type, record, video_file)
+        print(f"video saved to {video_file}")
     return result
 
 

@@ -1,7 +1,8 @@
 """Checks of the port on the card that `chip_smoke.py` and the card tests
 (`tests/test_torch_gpu.py`) share: K1's inputs with near-zero CLF rows,
-and one testing-mode, CLF-filtered, fp16-parity step on the card against
-the same step on the CPU. Both need a CUDA device."""
+one testing-mode, CLF-filtered, fp16-parity step on the card against the
+same step on the CPU, and the challenge buffer's record and replay steps
+on the card against the CPU. They need a CUDA device."""
 
 from __future__ import annotations
 
@@ -138,4 +139,69 @@ def clf_step_card_vs_cpu(dev: str = "cuda", B: int = 8) -> List[Check]:
         Check("step observation", float((og.cpu() - oc).abs().max()), 1e-4, False),
         Check("step done flags differing", int((dg.cpu() != dc).sum()), 0, False),
     ]
+    return [c._replace(ok=c.value <= c.limit) for c in checks]
+
+
+def challenge_buffer_steps_card_vs_cpu(dev: str = "cuda", B: int = 8) -> List[Check]:
+    """Two steps with the challenging initial-state buffer on (cpm_mixed,
+    N=4, a ring of 3 slots, every full-env reset replaying a record) from
+    the same state and draws on the card and on the CPU. Before the first,
+    agent 1 is put on agent 0 in every env, so that all B envs record (more
+    than the ring holds: the later envs win) and then replay. Per step: the
+    buffer, its pointer and valid count, the records and replays counted,
+    and the done flags equal; positions and rewards to atol 2e-5,
+    observations to 1e-4. Returns the checks."""
+    from sigmarl_tpu_torch import Parameters, make_env
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.env.structs import replace_state, state_to
+
+    N, C = 4, 3
+    p = Parameters(scenario_type="cpm_mixed", n_agents=N, num_vmas_envs=B, dt=0.1,
+                   max_steps=1_000_000, is_use_mtv_distance=False, is_obs_noise=False,
+                   is_challenging_initial_state_buffer=True)
+    env_c, env_g = make_env(p, device="cpu"), make_env(p, device=dev)
+    for env in (env_c, env_g):
+        env.cfg = dataclasses.replace(env.cfg, challenge_buffer_size=C,
+                                      probability_use_recording=1.0)
+    g = torch.Generator().manual_seed(5)
+    state, _ = env_c.reset(generator=g)
+    act = torch.zeros((B, N, 2))
+    act[..., 0] = 0.4
+    for _ in range(4):  # fill the state buffer the records come from
+        state, *_ = env_c.step(state, act, generator=g)
+    pos = state.pos.clone()
+    pos[:, 1] = pos[:, 0] + torch.tensor([0.02, 0.0])
+    state = replace_state(state, pos=pos)
+    sg = state_to(state, torch.device(dev))
+    checks = []
+    for k in range(2):
+        draws = ResetDraws.sample(env_c.cfg, g, "cpu")
+        # The replay's pick for every count v of valid records: floor(u v).
+        u = torch.rand((B,), generator=g)
+        draws.pick = (u[None] * torch.arange(1, C + 1)[:, None]).to(torch.int64)
+        draws.record_u = torch.rand((), generator=g)
+        draws_g = ResetDraws(**{f.name: None if getattr(draws, f.name) is None
+                                else getattr(draws, f.name).to(dev)
+                                for f in dataclasses.fields(ResetDraws)})
+        sc, oc, rc, dc, _ = env_c.step(state, act, reset_draws=draws)
+        sg, og, rg, dg, _ = env_g.step(sg, act.to(dev), reset_draws=draws_g)
+        counts_c, counts_g = env_c.challenge_counts.tolist(), env_g.challenge_counts.tolist()
+        checks += [
+            Check(f"step {k + 1}: buffer", float((sg.challenge_buffer.cpu() - sc.challenge_buffer)
+                                                 .abs().max()), 0.0, False),
+            Check(f"step {k + 1}: pointer and valid count differing",
+                  int(sg.cb_pointer.cpu() != sc.cb_pointer) + int(sg.cb_valid.cpu() != sc.cb_valid),
+                  0, False),
+            Check(f"step {k + 1}: records and replays differing ({counts_c} on the CPU)",
+                  int(counts_c != counts_g), 0, False),
+            Check(f"step {k + 1}: done flags differing", int((dg.cpu() != dc).sum()), 0, False),
+            Check(f"step {k + 1}: position", float((sg.pos.cpu() - sc.pos).abs().max()), 2e-5, False),
+            Check(f"step {k + 1}: reward", float((rg.cpu() - rc).abs().max()), 2e-5, False),
+            Check(f"step {k + 1}: observation", float((og.cpu() - oc).abs().max()), 1e-4, False),
+        ]
+        state = sc
+    records, replays = env_c.challenge_counts.tolist()
+    checks.append(Check("envs recorded short of B (all collided in step 1)",
+                        max(0, B - records), 0, False))
+    checks.append(Check("no env replayed", int(replays == 0), 0, False))
     return [c._replace(ok=c.value <= c.limit) for c in checks]

@@ -28,6 +28,7 @@ B, N = 4, 15
 PORTED_ENV_OPTIONS = {
     "n_observed_steps", "is_use_mtv_distance", "is_obs_noise", "is_using_opponent_modeling",
     "is_using_prioritized_marl", "is_testing_mode", "experiment_type",
+    "is_challenging_initial_state_buffer",
 }
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -152,23 +153,20 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     ],
 )
 def test_unported_env_options_raise(flag):
-    """Options still unported (the challenge buffer) raise; those ported
-    since (history, MTV, noise, the opponent-modeling pad, XP-MARL's env
-    config, testing mode, the lab experiment type) build, reset and step
+    """Every env option that once raised is ported (the challenge buffer,
+    history, MTV, noise, the opponent-modeling pad, XP-MARL's env config,
+    testing mode, the lab experiment type): each builds, resets and steps
     with finite outputs."""
     from sigmarl_tpu_torch import make_env
 
+    assert set(flag) <= PORTED_ENV_OPTIONS
     p = tcfg.Parameters(**{**params("cpm_entire", N, B), **flag})
-    if set(flag) <= PORTED_ENV_OPTIONS:
-        env = make_env(p, device="cpu")
-        g = torch.Generator().manual_seed(0)
-        state, obs = env.reset(generator=g)
-        state, obs, rew, done, _ = env.step(state, torch.zeros((B, N, 2)), generator=g)
-        assert obs.shape == (B, N, env.obs_dim)
-        assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(rew).all())
-        return
-    with pytest.raises(NotImplementedError):
-        make_env(p, device="cpu")
+    env = make_env(p, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    state, obs = env.reset(generator=g)
+    state, obs, rew, done, _ = env.step(state, torch.zeros((B, N, 2)), generator=g)
+    assert obs.shape == (B, N, env.obs_dim)
+    assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(rew).all())
 
 
 @pytest.mark.parametrize(

@@ -2,7 +2,8 @@
 controllers, the goal-reaching state, the metrics, a recorded rollout from
 the same weights and draws, `Evaluation` and `main_testing` on a model
 directory written by the JAX package, and the `main_eval`,
-`main_eval_parallel`, `at25` and `td_tools` entry points on the CPU.
+`main_eval_parallel`, `at25` and `td_tools` entry points on the CPU
+(`--save_video` included, read back with OpenCV).
 
 Tolerances: controllers and goal-reaching state to atol 1e-6 (the same
 float32 formulas); metrics exactly (the port's numpy copy on the same
@@ -169,6 +170,15 @@ def jax_model_dir(tmp_path, jax_policy_params):
     return os.path.join(str(tmp_path), "jax_model")
 
 
+def _video_frames(path):
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    return n
+
+
 def _expected_keys(record):
     return set(JM.basic_metrics(record)) | {"collisions_per_100m"} | {
         "timing_steps_per_s", "timing_wall_time_s", "timing_time_per_step_ms"}
@@ -182,8 +192,10 @@ def test_main_testing_on_a_jax_checkpoint(jax_model_dir, capsys):
     assert result["collision_rate_total"] == JM.basic_metrics(rec)["collision_rate_total"]
     assert rec["pos"].shape == (6, B, N, 2)
     assert json.loads(capsys.readouterr().out.split("\nrollout record")[0]) == result
-    with pytest.raises(NotImplementedError, match="render"):
-        main_testing.main([jax_model_dir, "--device", "cpu", "--save_video"])
+    # --save_video renders env 0 of the record (one frame per step).
+    main_testing.main([jax_model_dir, "--device", "cpu", "--max_steps", "3", "--num_envs", "2",
+                       "--save_video"])
+    assert _video_frames(os.path.join(jax_model_dir, "video_seed0.mp4")) == 3
 
 
 def test_evaluation_on_a_jax_checkpoint(jax_model_dir, tmp_path):
@@ -213,8 +225,10 @@ def test_main_eval_and_td_tools(tmp_path):
     assert res["timing_steps_per_s"] == result["timing_steps_per_s"]
     assert td_tools.parse_tag("x/out_td_intersection_1_n4_c3_rl_nocbf_s2.npz")["scenario"] == \
         "intersection_1"
-    with pytest.raises(NotImplementedError, match="render"):
-        main_eval.main(["--device", "cpu", "--save_video"])
+    # --save_video renders env 0 of the record, action arrows included.
+    main_eval.main(["--device", "cpu", "--num_envs", "2", "--max_steps", "3", "--n_agents", "1",
+                    "--n_circles", "2", "--out_dir", out, "--save_video"])
+    assert _video_frames(os.path.join(out, "video_cpm_mixed_n1_c2_clf_cbf_s0.mp4")) == 3
 
 
 def test_main_eval_parallel_runs_the_grid(tmp_path):
@@ -230,6 +244,17 @@ def test_main_eval_parallel_runs_the_grid(tmp_path):
     assert "--no_cbf" in grid[0] and "--no_cbf" not in grid[1]
     assert main_eval_parallel.main(args) == 0
     assert len([f for f in os.listdir(out) if f.startswith("out_td_")]) == 2
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_main_eval_parallel_keeps_the_device(device):
+    """With --jobs 2 every run of the grid goes to the device the caller
+    gave (the card's processes share it); the CPU only when asked for."""
+    grid = main_eval_parallel.build_grid(main_eval_parallel.argparse.Namespace(
+        n_seeds=2, scenarios=["cpm_mixed"], n_agents=4, num_envs=2, max_steps=3, sweep_cbf=True,
+        jobs=2, out_dir="unused", device=device))
+    assert len(grid) == 4
+    assert all(c[c.index("--device") + 1] == device for c in grid)
 
 
 def test_at25_from_predefined_poses():

@@ -49,6 +49,23 @@ def _live(N):
     return jenv, tenv, jcbf, tcbf, jstep, state
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_reference(N):
+    """The JAX filter's assembly (without the static pair lists) and
+    `filter_actions` of `_live(N)`, each jitted once per N and shared by
+    the tests below (op by op, JAX compiles every operation apart)."""
+    jcbf = _live(N)[2]
+
+    def assemble(state, act):
+        cons, u_nom, rl, _ = jcbf.assemble(state, act)
+        return cons._replace(pair_i=None, pair_j=None), u_nom, rl
+
+    def filter_actions(state, act, key, u_init):
+        return jcbf.filter_actions(state, act, key, u_init=u_init)
+
+    return jax.jit(assemble), jax.jit(filter_actions)
+
+
 def _filters(jenv, tenv, N, **cbf_kw):
     return (JCBFSafetyFilter(JCBFConfig(n_agents=N, **cbf_kw), jenv.cfg, jenv.tables),
             CBFSafetyFilter(CBFConfig(n_agents=N, **cbf_kw), tenv.cfg, tenv.tables, device="cpu"))
@@ -65,7 +82,7 @@ def test_clf_assembly_matches_jax(N):
     [e_speed, 0]] and b = -lam_clf / 2 e^2."""
     _, _, jcbf, tcbf, _, state = _live(N)
     act = _actions(jax.random.PRNGKey(5), N)
-    jcons, ju, jrl, _ = jcbf.assemble(state, act)
+    jcons, ju, jrl = _jax_reference(N)[0](state, act)
     tcons, tu, trl, _ = tcbf.assemble(to_torch_state(state), torch.from_numpy(np.asarray(act)))
     np.testing.assert_allclose(tu.numpy(), np.asarray(ju), atol=1e-5)
     np.testing.assert_allclose(trl.numpy(), np.asarray(jrl), atol=1e-5)
@@ -118,7 +135,7 @@ def test_clf_filtered_step_matches_jax(N):
     # The env step from JAX's filter output, so that every env's reward is
     # held to JAX's, also where the two solves part within their tolerance.
     k_cbf, _ = jax.random.split(key)
-    jf = jcbf.filter_actions(state, act, k_cbf, u_init=state.cbf_u_prev)
+    jf = _jax_reference(N)[1](state, act, k_cbf, state.cbf_u_prev)
     applied = torch.from_numpy(np.array(jf.safe_actions))
     ts_in = replace_state(ts0, nominal_action=torch.from_numpy(np.array(jf.nominal_actions)),
                           applied_action=applied, cbf_u_prev=torch.from_numpy(np.array(jf.u_star)))

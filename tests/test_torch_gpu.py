@@ -2,7 +2,7 @@
 rollout-like sizes and on the evaluation path's inputs (one agent, active
 CLF rows, one to five circles, window selections), the kernels' launches
 in training iterations, the training entry point, and steps on the card
-against the CPU. Every test here needs a CUDA
+against the CPU (the challenge buffer's record and replay included). Every test here needs a CUDA
 device (marker `gpu`) and skips without one. The file imports no JAX, so
 it also runs on a machine that has only PyTorch:
 
@@ -27,7 +27,11 @@ from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter
 from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, topk_chunks
 from sigmarl_tpu_torch.safety.qp import StructuredConstraintSet, kernel_inputs
 from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step
-from sigmarl_tpu_torch.utils.card_checks import clf_step_card_vs_cpu, near_zero_clf_rows
+from sigmarl_tpu_torch.utils.card_checks import (
+    challenge_buffer_steps_card_vs_cpu,
+    clf_step_card_vs_cpu,
+    near_zero_clf_rows,
+)
 
 pytestmark = pytest.mark.gpu
 B, N, Q = 64, 15, 27
@@ -646,4 +650,17 @@ def test_testing_clf_fp16_step_on_the_card_matches_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
     checks = clf_step_card_vs_cpu("cuda")
+    assert all(c.ok for c in checks), [c for c in checks if not c.ok]
+
+
+def test_challenge_buffer_record_and_replay_on_the_card_match_the_cpu():
+    """Two steps with the challenge buffer on (cpm_mixed, N=4, B=8, a ring
+    of 3 slots, every env recording in the first and replaying) from the
+    same state and draws on the card and the CPU, to the tolerances of
+    `utils/card_checks.py::challenge_buffer_steps_card_vs_cpu`: the buffer,
+    its pointers, the record and replay counts and the done flags equal;
+    positions and rewards 2e-5, observations 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    checks = challenge_buffer_steps_card_vs_cpu("cuda")
     assert all(c.ok for c in checks), [c for c in checks if not c.ok]

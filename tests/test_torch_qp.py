@@ -64,9 +64,33 @@ def mixed():
     return cons, u_nom
 
 
-def _jax_solve(cons, u_nom, **kw):
-    return jqp.solve_structured_qp(
-        cons, u_nom, jnp.asarray(W_U), jnp.asarray(LO), jnp.asarray(HI), **kw)
+@pytest.fixture(scope="module")
+def jax_refs(mixed):
+    """Every JAX solve of `mixed` that the tests below compare with,
+    computed once for the module, each budget jitted (op by op, JAX
+    compiles every operation apart): XLA at 0, 1 and 30 iterations, the
+    Pallas kernel in interpret mode at the same, the 3+5 ladder from a
+    perturbed warm start, and 3+30 at ws_cap 1e5. Returns {name: (u, F)}
+    and the warm start."""
+    cons, u_nom = mixed
+    arrays = {f: getattr(cons, f) for f in jqp.StructuredConstraintSet._fields
+              if f not in ("pair_i", "pair_j")}
+    u_init = np.array(u_nom) + np.random.default_rng(0).normal(0, 0.5, u_nom.shape)
+    u_init = u_init.astype(np.float32)
+    bounds = (jnp.asarray(W_U), jnp.asarray(LO), jnp.asarray(HI))
+    runs = {
+        **{f"xla{it}": (jqp.solve_structured_qp, dict(n_iters=it)) for it in (0, 1, 30)},
+        **{f"pallas{it}": (jqp.solve_structured_qp_pallas, dict(n_iters=it, interpret=True))
+           for it in (0, 1, 30)},
+        "ladder": (jqp.solve_structured_qp, dict(n_iters=5, soft_iters=3,
+                                                 u_init=jnp.asarray(u_init))),
+        "ws_cap": (jqp.solve_structured_qp, dict(n_iters=30, soft_iters=3, ws_cap=1e5)),
+    }
+    out = {}
+    for name, (solve, kw) in runs.items():
+        fn = jax.jit(lambda a, u, solve=solve, kw=kw: solve(cons._replace(**a), u, *bounds, **kw))
+        out[name] = tuple(np.asarray(x) for x in fn(arrays, u_nom))
+    return out, u_init
 
 
 def _port_solve(cons, u_nom, dtype=torch.float32, **kw):
@@ -75,26 +99,21 @@ def _port_solve(cons, u_nom, dtype=torch.float32, **kw):
     return u.numpy(), F.numpy()
 
 
-def test_plain_solver_matches_jax(mixed):
+def test_plain_solver_matches_jax(mixed, jax_refs):
     cons, u_nom = mixed
+    refs, _ = jax_refs
     for it in (0, 1):
         u, F = _port_solve(cons, u_nom, n_iters=it)
-        ux, Fx = _jax_solve(cons, u_nom, n_iters=it)
-        up, Fp = jqp.solve_structured_qp_pallas(
-            cons, u_nom, jnp.asarray(W_U), jnp.asarray(LO), jnp.asarray(HI),
-            n_iters=it, interpret=True,
-        )
+        ux, Fx = refs[f"xla{it}"]
+        up, Fp = refs[f"pallas{it}"]
         if it == 0:
             np.testing.assert_allclose(u, np.asarray(ux), atol=2e-5, rtol=1e-5)
             np.testing.assert_allclose(u, np.asarray(up), atol=2e-5, rtol=1e-5)
         assert rel_gap(F, Fx).max() < 1e-3
         assert rel_gap(F, Fp).max() < 1e-3
     _, F = _port_solve(cons, u_nom, n_iters=30)
-    _, Fx = _jax_solve(cons, u_nom, n_iters=30)
-    _, Fp = jqp.solve_structured_qp_pallas(
-        cons, u_nom, jnp.asarray(W_U), jnp.asarray(LO), jnp.asarray(HI),
-        n_iters=30, interpret=True,
-    )
+    _, Fx = refs["xla30"]
+    _, Fp = refs["pallas30"]
     assert rel_gap(F, Fx).max() < 1e-4
     assert rel_gap(F, Fp).max() < 1e-4
 
@@ -122,24 +141,23 @@ def _f64(x):
     return jnp.float64 if np.asarray(x).dtype == np.float32 else np.asarray(x).dtype
 
 
-def test_plain_solver_warm_start_and_ladder_match_jax(mixed):
+def test_plain_solver_warm_start_and_ladder_match_jax(mixed, jax_refs):
     """The warm-start choice and the stiffness ladder (3 soft + 5 stiff),
     from a perturbed warm start."""
     cons, u_nom = mixed
-    u_init = np.array(u_nom) + np.random.default_rng(0).normal(0, 0.5, u_nom.shape)
-    u_init = u_init.astype(np.float32)
+    refs, u_init = jax_refs
     _, F = _port_solve(cons, u_nom, n_iters=5, soft_iters=3,
                        u_init=torch.from_numpy(u_init))
-    _, Fx = _jax_solve(cons, u_nom, n_iters=5, soft_iters=3, u_init=jnp.asarray(u_init))
+    _, Fx = refs["ladder"]
     assert rel_gap(F, Fx).max() < 1e-3
 
 
-def test_ws_cap_reaches_the_ladder(mixed):
+def test_ws_cap_reaches_the_ladder(mixed, jax_refs):
     """At ws_cap=1e5 the port's solver passes the cap on to its ladder and
     matches JAX `solve_structured_qp` (the Pallas branch drops the cap)."""
     cons, u_nom = mixed
     _, F = _port_solve(cons, u_nom, n_iters=30, soft_iters=3, ws_cap=1e5)
-    _, Fx = _jax_solve(cons, u_nom, n_iters=30, soft_iters=3, ws_cap=1e5)
+    _, Fx = jax_refs[0]["ws_cap"]
     assert rel_gap(F, Fx).max() < 1e-4
 
 

@@ -41,11 +41,24 @@ def live():
     return jenv, tenv, jcbf, tcbf, jstep, state
 
 
+@pytest.fixture(scope="module")
+def jax_assemble(live):
+    """The JAX filter's assembly (without the static pair lists), jitted
+    once for the module (op by op, JAX compiles every operation apart)."""
+    jcbf = live[2]
+
+    def assemble(state, act):
+        cons, u_nom, rl, _ = jcbf.assemble(state, act)
+        return cons._replace(pair_i=None, pair_j=None), u_nom, rl
+
+    return jax.jit(assemble)
+
+
 def actions(key):
     return jax.random.uniform(key, (B, N, 2), minval=-0.3, maxval=0.9)
 
 
-def test_assembly_matches_jax(live):
+def test_assembly_matches_jax(live, jax_assemble):
     """Constraint rows from the same state and RL actions. The lane rows
     come from finite differences of the pseudo-distance field (step 0.02:
     gradients divide distance rounding by 0.02, Hessians by 4e-4), so lane
@@ -54,7 +67,7 @@ def test_assembly_matches_jax(live):
     1e-5; weights and validity exactly."""
     _, _, jcbf, tcbf, _, state = live
     act = actions(jax.random.PRNGKey(5))
-    jcons, ju_nom, jrl, _ = jcbf.assemble(state, act)
+    jcons, ju_nom, jrl = jax_assemble(state, act)
     tcons, tu_nom, trl, _ = tcbf.assemble(to_torch_state(state), torch.from_numpy(np.asarray(act)))
     np.testing.assert_allclose(tu_nom.numpy(), np.asarray(ju_nom), atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(trl.numpy(), np.asarray(jrl), atol=1e-6)
@@ -66,8 +79,10 @@ def test_assembly_matches_jax(live):
         np.testing.assert_allclose(
             getattr(tcons, f).numpy(), np.asarray(getattr(jcons, f)), atol=atol, rtol=rtol,
             err_msg=f)
-    for f in ("valid_s", "valid_p", "pair_i", "pair_j"):
+    for f in ("valid_s", "valid_p"):
         np.testing.assert_array_equal(np.asarray(getattr(tcons, f)), np.asarray(getattr(jcons, f)))
+    for f in ("pair_i", "pair_j"):  # static lists, not outputs of the jitted assembly
+        np.testing.assert_array_equal(np.asarray(getattr(tcons, f)), getattr(jcbf, "_" + f))
 
 
 def test_policy_with_carried_weights_matches_jax():

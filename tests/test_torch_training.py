@@ -4,8 +4,9 @@ The slice as a whole: one training iteration of `MAPPOCAVs` against JAX's
 `_train_iteration` from the same weights, the same env state and the JAX
 package's random draws (rebuilt from its key schedule), on cpm_mixed with
 N=4, B=4, T=8, one epoch of two minibatches of 16 frames, once with plain
-env steps and once in margins-only (CBF-informed) mode. Tolerances: the
-final env state, observations and the episode-reward metric to atol 1e-4
+env steps and once in margins-only (CBF-informed) mode; and one with the
+challenging initial-state buffer on. Tolerances: the final env state,
+observations and the episode-reward metric to atol 1e-4
 (eight steps of float32 dynamics); the loss statistics to a relative 1e-4;
 at least 99 % of the parameter entries within 1e-6 of JAX's and all of
 them within 2 * lr * (number of updates): Adam's first steps move every
@@ -23,6 +24,7 @@ import torch
 
 import sigmarl_tpu.config as jcfg
 import sigmarl_tpu_torch.config as tcfg
+from sigmarl_tpu.env.structs import replace_state as jreplace
 from sigmarl_tpu.rl import MAPPOCAVs as JMAPPOCAVs
 from sigmarl_tpu.rl.mappo_cavs import TrainState as JTrainState
 from sigmarl_tpu_torch.env.reset import ResetDraws
@@ -30,7 +32,8 @@ from sigmarl_tpu_torch.env.structs import WorldState
 from sigmarl_tpu_torch.rl.mappo_cavs import IterationDraws, MAPPOCAVs, TrainState, mappo_cavs
 from sigmarl_tpu_torch.rl.networks import critic_from_jax_params, policy_from_jax_params, to_jax_params
 from tests.torch_parity import (
-    as_reset_draws, env_variant, envs, reset_draw_arrays, to_numpy, to_torch_state,
+    IDX, as_reset_draws, assert_idx_close, env_variant, envs, reset_draw_arrays, to_numpy,
+    to_torch_state,
 )
 
 torch.set_num_threads(1)
@@ -55,18 +58,24 @@ def iteration_draws(key, trainer, jenv_cfg, filtered_or_margins: bool) -> Iterat
     M = p.max_steps * p.num_vmas_envs
     mb = M // n_mb
 
-    split = jax.vmap(jax.random.split)
-    _, k_roll, _, k_ent = jax.random.split(key, 4)
-    k_act_env = split(jax.random.split(k_roll, p.max_steps))
-    k_act, k_env = k_act_env[:, 0], k_act_env[:, 1]
-    if filtered_or_margins:
-        k_env = split(k_env)[:, 1]
-    noise = jax.vmap(lambda k: jax.random.normal(k, (p.num_vmas_envs, p.n_agents, 2)))(k_act)
-    resets = jax.vmap(lambda k: reset_draw_arrays(k, jenv_cfg))(split(k_env)[:, 0])
-    k_pe = split(jax.random.split(k_ent, p.num_epochs))
-    perms = jax.vmap(lambda k: jax.random.permutation(k, M))(k_pe[:, 0])
-    ent = jax.vmap(lambda k: jax.vmap(lambda kk: jax.random.normal(kk, (mb, p.n_agents, 2)))(
-        jax.random.split(k, n_mb)))(k_pe[:, 1])
+    @jax.jit
+    def arrays(key):
+        split = jax.vmap(jax.random.split)
+        _, k_roll, _, k_ent = jax.random.split(key, 4)
+        k_act_env = split(jax.random.split(k_roll, p.max_steps))
+        k_act, k_env = k_act_env[:, 0], k_act_env[:, 1]
+        if filtered_or_margins:
+            k_env = split(k_env)[:, 1]
+        noise = jax.vmap(lambda k: jax.random.normal(k, (p.num_vmas_envs, p.n_agents, 2)))(k_act)
+        resets = jax.vmap(lambda k: reset_draw_arrays(k, jenv_cfg))(split(k_env)[:, 0])
+        k_pe = split(jax.random.split(k_ent, p.num_epochs))
+        perms = jax.vmap(lambda k: jax.random.permutation(k, M))(k_pe[:, 0])
+        ent = jax.vmap(lambda k: jax.vmap(lambda kk: jax.random.normal(kk, (mb, p.n_agents, 2)))(
+            jax.random.split(k, n_mb)))(k_pe[:, 1])
+        return noise, resets, perms, ent
+
+    # One compiled function: eager JAX would compile each operation apart.
+    noise, resets, perms, ent = arrays(key)
     return IterationDraws(
         action_noise=torch.from_numpy(np.asarray(noise)),
         reset_draws=[as_reset_draws([None if a is None else a[i] for a in resets])
@@ -236,3 +245,57 @@ def test_main_training_cli_on_cpu(tmp_path, capsys):
     files = os.listdir(os.path.join(tmp_path, d))
     assert {"info.txt", "final_policy.pkl", "final_critic.pkl"} <= set(files)
     assert "iter 1/1" in capsys.readouterr().out
+
+
+def test_training_iteration_with_the_buffer_matches_jax(start, tmp_path):
+    """One iteration with the challenging initial-state buffer on, from a
+    state whose eight-slot buffer holds four records and with every
+    full-env reset replaying one (every env ends at least once, at
+    max_steps): the env state (boundary indices as
+    `torch_parity.assert_idx_close` allows at float32 ties, which replays
+    meet), observations, episode reward and losses to the tolerances
+    above."""
+    kw = {**BASE, "is_challenging_initial_state_buffer": True, "where_to_save": str(tmp_path) + "/"}
+    Bt, Nt = B, N
+    jenv, tenv, env_state, obs = start
+    jenv, tenv = env_variant(jenv, tenv, is_challenging_initial_state_buffer=True,
+                             probability_use_recording=1.0, challenge_buffer_size=8)
+    rec = np.array(env_state.state_buffer)[(int(env_state.sb_pointer) - 1) % 10]  # [B, N, 8]
+    cbuf = np.zeros((8, Nt, 8), np.float32)
+    cbuf[:Bt] = rec[::-1]
+    env_state = jreplace(env_state, challenge_buffer=jnp.asarray(cbuf),
+                         cb_valid=jnp.asarray(Bt, jnp.int32), cb_pointer=jnp.asarray(Bt, jnp.int32))
+    jtr = JMAPPOCAVs(jcfg.Parameters(**kw), env=jenv)
+    ttr = MAPPOCAVs(tcfg.Parameters(**kw), env=tenv)
+    key = jax.random.PRNGKey(11)
+    jstate = JTrainState(
+        policy_params=jtr.policy_params, critic_params=jtr.critic_params,
+        opt_state=jtr.opt_state, env_state=env_state, obs=obs,
+        ep_reward_accum=jnp.zeros((Bt, Nt)), key=key, iteration=jnp.zeros((), jnp.int32),
+    )
+    jnew, jm = jtr._train_iteration(jstate)
+    np_tree = lambda x: jax.tree_util.tree_map(np.asarray, x)  # noqa: E731
+    policy = policy_from_jax_params(np_tree(jtr.policy_params), device="cpu")
+    critic = critic_from_jax_params(np_tree(jtr.critic_params), Nt, device="cpu")
+    tstate = TrainState(
+        policy=policy, critic=critic,
+        opt_state=ttr.optimizer.init(list(policy.parameters()) + list(critic.parameters())),
+        env_state=to_torch_state(env_state), obs=torch.from_numpy(np.array(obs)),
+        ep_reward_accum=torch.zeros((Bt, Nt)), iteration=0,
+    )
+    tnew, tm = ttr.train_iteration(tstate, iteration_draws(key, ttr, jenv.cfg, False))
+    assert_idx_close(tnew.env_state, jnew.env_state, tenv.tables)
+    for f in dataclasses.fields(WorldState):
+        if f.name in IDX:
+            continue
+        a, b = to_numpy(getattr(tnew.env_state, f.name)), np.asarray(getattr(jnew.env_state, f.name))
+        if np.issubdtype(b.dtype, np.floating):
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-5, err_msg=f.name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+    np.testing.assert_allclose(tnew.obs.numpy(), np.asarray(jnew.obs), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(float(tm["episode_reward_mean"]), float(jm["episode_reward_mean"]),
+                               atol=1e-4)
+    assert float(tm["n_done"]) == float(jm["n_done"]) > 0
+    for k in ("loss_objective", "loss_critic", "loss_entropy"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, err_msg=k)

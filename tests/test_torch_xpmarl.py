@@ -247,38 +247,46 @@ def iteration_draws(key, trainer, jenv_cfg) -> IterationDraws:
     T, Bn, n_mb = p.max_steps, p.num_vmas_envs, trainer.n_minibatches
     M = T * Bn
     mb = M // n_mb
-    split, vmap = jax.vmap(jax.random.split), jax.vmap
-    _, k_roll, _, k_ent = jax.random.split(key, 4)
-    k_act_env = split(jax.random.split(k_roll, T))
-    k_act, k_env = k_act_env[:, 0], k_act_env[:, 1]
-    extra = {}
-    if trainer.use_prio:
-        k_pa = split(k_act)
-        extra["priority_noise"] = vmap(lambda k: jax.random.normal(k, (Bn, N, 1)))(k_pa[:, 0])
-        turns = vmap(lambda k: jax.random.split(k, N))(k_pa[:, 1])  # [T, N, 2]
-        if trainer.communication_noise_level > 0:
-            pairs = vmap(split)(turns)
-            turns = pairs[:, :, 1]
-            extra["communication_noise"] = vmap(vmap(
-                lambda k: jax.random.normal(k, (Bn, 2 * trainer.k_nearing))))(pairs[:, :, 0])
-        noise = vmap(vmap(lambda k: jax.random.normal(k, (Bn, 2))))(turns)
-    else:
-        k3 = vmap(lambda k: jax.random.split(k, 3))(k_act)
-        normal = vmap(lambda k: jax.random.normal(k, (Bn, N, 2)))
-        noise = jnp.stack([normal(k3[:, 0]), normal(k3[:, 2])], axis=1)
-    resets = vmap(lambda k: reset_draw_arrays(k, jenv_cfg))(split(k_env)[:, 0])
-    k_pe = split(jax.random.split(k_ent, p.num_epochs))
-    ent_keys = vmap(lambda k: jax.random.split(k, n_mb))(k_pe[:, 1])
-    ent = vmap(vmap(lambda k: jax.random.normal(k, (mb, N, 2))))(ent_keys)
-    extra["priority_entropy_noise"] = vmap(vmap(lambda k: jax.random.normal(k, (mb, N, 1))))(
-        ent_keys)
+    @jax.jit
+    def arrays(key):
+        split, vmap = jax.vmap(jax.random.split), jax.vmap
+        _, k_roll, _, k_ent = jax.random.split(key, 4)
+        k_act_env = split(jax.random.split(k_roll, T))
+        k_act, k_env = k_act_env[:, 0], k_act_env[:, 1]
+        extra = {}
+        if trainer.use_prio:
+            k_pa = split(k_act)
+            extra["priority_noise"] = vmap(lambda k: jax.random.normal(k, (Bn, N, 1)))(k_pa[:, 0])
+            turns = vmap(lambda k: jax.random.split(k, N))(k_pa[:, 1])  # [T, N, 2]
+            if trainer.communication_noise_level > 0:
+                pairs = vmap(split)(turns)
+                turns = pairs[:, :, 1]
+                extra["communication_noise"] = vmap(vmap(
+                    lambda k: jax.random.normal(k, (Bn, 2 * trainer.k_nearing))))(pairs[:, :, 0])
+            noise = vmap(vmap(lambda k: jax.random.normal(k, (Bn, 2))))(turns)
+        else:
+            k3 = vmap(lambda k: jax.random.split(k, 3))(k_act)
+            normal = vmap(lambda k: jax.random.normal(k, (Bn, N, 2)))
+            noise = jnp.stack([normal(k3[:, 0]), normal(k3[:, 2])], axis=1)
+        resets = vmap(lambda k: reset_draw_arrays(k, jenv_cfg))(split(k_env)[:, 0])
+        k_pe = split(jax.random.split(k_ent, p.num_epochs))
+        ent_keys = vmap(lambda k: jax.random.split(k, n_mb))(k_pe[:, 1])
+        ent = vmap(vmap(lambda k: jax.random.normal(k, (mb, N, 2))))(ent_keys)
+        extra["priority_entropy_noise"] = vmap(vmap(
+            lambda k: jax.random.normal(k, (mb, N, 1))))(ent_keys)
+        perms = vmap(lambda k: jax.random.permutation(k, M))(k_pe[:, 0])
+        obs_noise = vmap(lambda k: obs_noise_array(k, jenv_cfg))(k_env)
+        return noise, resets, perms, ent, obs_noise, extra
+
+    # One compiled function: eager JAX would compile each operation apart.
+    noise, resets, perms, ent, obs_noise, extra = arrays(key)
     return IterationDraws(
         action_noise=t(noise),
         reset_draws=[as_reset_draws([None if a is None else a[i] for a in resets])
                      for i in range(T)],
-        permutations=t(vmap(lambda k: jax.random.permutation(k, M))(k_pe[:, 0])).long(),
+        permutations=t(perms).long(),
         entropy_noise=t(ent),
-        obs_noise=t(vmap(lambda k: obs_noise_array(k, jenv_cfg))(k_env)),
+        obs_noise=t(obs_noise),
         **{k: t(v) for k, v in extra.items()},
     )
 
