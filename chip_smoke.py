@@ -103,6 +103,20 @@ Phases, in order; any failure exits non-zero before the result line:
     selection, bit for bit; then one testing-mode, CLF-filtered,
     fp16-parity step on the card against the CPU (N=4, B=8;
     `sigmarl_tpu_torch/utils/card_checks.py`, shared with the card test);
+18a. data parallelism over ranks (`parallel/mesh.py`): the CBF-filtered
+    iteration at the main path's width with the challenge buffer on
+    (N=15, B=1024, T=16, 2+15) from one start and draws drawn once on the
+    card, in this process and then (a) on 2 ranks sharing the card over
+    gloo (512 envs each) and (b) on a 1-rank nccl group, each held
+    against this process's iteration (`utils/card_checks.py::
+    sharded_vs_unsharded`: the rollout bit for bit or within 1e-3 with
+    integer fields and flags equal, the parameter rule, K1 and K2 once
+    per rollout step on every rank, counts set to 0 before each
+    iteration); a second iteration from the generators timed in each;
+18b. the host tools on the card against the CPU: the dense QP oracle on
+    `to_dense` of a filtered step's set, `pseudo_distance_to_polyline`,
+    `current_lanelet_id`; an `InteractiveSession` and `debug_demo`
+    stepping on the card;
 19. kernel times beside each kernel's bound and its plain version's time,
     K1's shared memory, blocks per SM and waves, the launches on every
     path above, K1's grouped, training-budget, CLF and one-agent timings
@@ -1518,6 +1532,125 @@ def challenge_small_check(dev) -> None:
         check(c.ok, f"card vs CPU: {c.what} {c.value} above {c.limit}")
 
 
+# The sharded phase: `FILTERED_TRAINING` with the challenge buffer on at its
+# defaults, the start and the draws drawn once on the card from this seed.
+SHARDED_TRAINING = {**FILTERED_TRAINING, "is_challenging_initial_state_buffer": True}
+SHARDED_SEED = 7
+
+
+def sharded_phase(smi: str) -> dict:
+    """The CBF-filtered iteration at the main path's width (N=15, B=1024,
+    T=16, 2+15, challenge buffer on) over ranks (`parallel/mesh.py`),
+    against the same iteration in this process from the same start and
+    draws: (a) 2 ranks sharing the card over gloo (512 envs each, CUDA
+    tensors staged through the host), (b) a 1-rank nccl group. The checks
+    of `utils/card_checks.py::sharded_vs_unsharded` (integer fields and
+    flags equal, floats within 1e-3, u* 1e-2, the parameter rule of the
+    CPU tests, K1 and K2 once per rollout step on every rank); whether the
+    rollout is bit for bit, and if not, how far the policy's outputs for
+    512 envs move when it runs on 1024. A second iteration from the
+    generators is timed in each. Returns {name: seconds of both
+    iterations and launches}."""
+    import torch
+
+    from sigmarl_tpu_torch import MAPPOCAVs, Parameters
+    from sigmarl_tpu_torch.parallel.dryrun import spawn_ranks
+    from sigmarl_tpu_torch.utils.card_checks import (
+        policy_rows_invariant,
+        sharded_iteration_rank,
+        sharded_vs_unsharded,
+        unsharded_iteration,
+    )
+
+    ref = unsharded_iteration(SHARDED_TRAINING, SHARDED_SEED)
+    out = {"unsharded": dict(seconds=ref["seconds"], launches=ref["launches"])}
+    print(f"sharded phase, unsharded reference (N=15, B=1024): iterations "
+          f"{ref['seconds'][0]:.3f} / {ref['seconds'][1]:.3f} s, launches {ref['launches']}, "
+          f"(records, replays) {ref['counts'].tolist()}; on {smi}")
+    tr = MAPPOCAVs(Parameters(**SHARDED_TRAINING, device="cuda"))
+    moved = policy_rows_invariant(tr.policy_net, ref["obs"].cuda(), BATCH // 2)
+    print(f"sharded phase: the policy's outputs for {BATCH // 2} envs run alone against within "
+          f"{BATCH}: max difference {moved:.3g}")
+    for name, world, backend in (("2 ranks, gloo, one card", 2, "gloo"),
+                                 ("1 rank, nccl", 1, "nccl")):
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(sharded_iteration_rank, world, SHARDED_TRAINING, ref["start"],
+                            ref["draws"], backend=backend, device="cuda:0")
+        wall = time.perf_counter() - t0
+        checks = sharded_vs_unsharded(ref, ranks, name)
+        for c in checks:
+            print(f"  {c.what}: {c.value:.6g} (limit {c.limit:g}){'' if c.ok else ' FAIL'}")
+        secs = [r["seconds"] for r in ranks]
+        print(f"sharded phase, {name}: iterations {secs} s per rank (unsharded "
+              f"{ref['seconds']}), {wall:.1f} s with the processes' start; on {smi}")
+        for c in checks:
+            check(c.ok, f"{c.what}: {c.value} beyond {c.limit}")
+        out[name] = dict(seconds=secs, launches=[r["launches"] for r in ranks], wall=wall)
+    return out
+
+
+def host_tools_phase(dev, smi) -> None:
+    """The last host-side modules on the card against the CPU: the dense
+    QP oracle on `to_dense` of a filtered step's set (N=4, B=8; F to a
+    relative 1e-4), `pseudo_distance_to_polyline` on the example map's
+    boundary (atol 1e-5), `current_lanelet_id` of every agent (equal);
+    then an `InteractiveSession` (keys, 5 steps) and `debug_demo` (5
+    steps) on the card, finite."""
+    import numpy as np
+    import torch
+
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, Parameters, make_env
+    from sigmarl_tpu_torch.core.geometry import current_lanelet_id
+    from sigmarl_tpu_torch.env import debug_demo
+    from sigmarl_tpu_torch.env.interactive import InteractiveSession
+    from sigmarl_tpu_torch.env.structs import state_to
+    from sigmarl_tpu_torch.maps.manager import load_map
+    from sigmarl_tpu_torch.safety.pseudo_distance import pseudo_distance_to_polyline
+    from sigmarl_tpu_torch.safety.qp import solve_boxed_penalty_qp
+
+    p = Parameters(scenario_type="cpm_entire", n_agents=4, num_vmas_envs=8, dt=0.1,
+                   is_use_mtv_distance=False, is_obs_noise=False)
+    out = {}
+    for d in ("cpu", dev):
+        env = make_env(p, device=d)
+        cbf = CBFSafetyFilter(CBFConfig(n_agents=4, dt=0.1), env.cfg, env.tables, device=d)
+        state, _ = env.reset(generator=torch.Generator().manual_seed(3)) if d == "cpu" else (
+            state_to(out["cpu"]["state"], d), None)
+        act = torch.full((8, 4, 2), 0.4, device=d)
+        cons, u_nom, _, _ = cbf.assemble(state, act)
+        dense = cbf.to_dense(cons)
+        w_u, lo, hi = (torch.tensor(x, device=d).repeat(4) for x in (
+            (cbf.cfg.w_u_acc, cbf.cfg.w_u_steer), (cbf.a_min, cbf.rate_min),
+            (cbf.a_max, cbf.rate_max)))
+        u, F = solve_boxed_penalty_qp(dense, u_nom.reshape(8, 8), w_u, lo, hi, n_iters=12)
+        t = env.tables
+        pid = state.path_id.long()
+        ids = current_lanelet_id(state.pos, t.ref_lanelet_segment_points[pid],
+                                 t.n_ref_lanelet_ids[pid], t.ref_lanelet_ids[pid])
+        path = load_map("pseudo_distance_example").reference_paths[0]
+        bnd = torch.as_tensor(path.left_boundary_shared, device=d)
+        pts = bnd[None] + torch.linspace(-0.2, 0.2, 9, device=d)[:, None, None]
+        pd = pseudo_distance_to_polyline(pts.reshape(-1, 2), bnd, torch.as_tensor(
+            path.left_boundary_shared_pseudo_vector, device=d))
+        out[d] = dict(state=state_to(state, "cpu"), F=F.cpu(), ids=ids.cpu(), pd=pd.cpu())
+    gap = float(((out[dev]["F"] - out["cpu"]["F"]).abs() / (1 + out["cpu"]["F"].abs())).max())
+    pd_err = float((out[dev]["pd"] - out["cpu"]["pd"]).abs().max())
+    same_ids = bool(torch.equal(out[dev]["ids"], out["cpu"]["ids"]))
+    print(f"host tools, card vs CPU: dense solve F gap {gap:.3g} (<= 1e-4), pseudo distance "
+          f"{pd_err:.3g} (<= 1e-5), lanelet IDs equal {same_ids}")
+    check(gap <= 1e-4, f"dense solve on the card: F gap {gap}")
+    check(pd_err <= 1e-5, f"pseudo distance on the card: {pd_err}")
+    check(same_ids, "current_lanelet_id differs between the card and the CPU")
+    sess = InteractiveSession(device=dev)
+    for k in ("up", "up", "left", "r", "up"):
+        sess.key(k)
+    rews = [sess.step()[0] for _ in range(5)]
+    traj = debug_demo.main(["--steps", "5", "--device", dev])
+    check(sess.t == 5 and all(np.isfinite(r).all() for r in rews) and np.isfinite(traj).all(),
+          "the interactive session or the debug demo on the card gave non-finite values")
+    print(f"host tools: interactive session and debug demo stepped 5 times on the card; on {smi}")
+
+
 def clf_small_check(dev) -> None:
     """One testing-mode, CLF-filtered, fp16-parity step (cpm_mixed, N=4,
     B=8) on the card against the CPU from the same state and draws, to the
@@ -1658,6 +1791,8 @@ def main() -> int:
         ecc_lcss_phase(smi, wd)
     eval_errs = eval_kernel_checks(evals, itsc, wide_clf)
     clf_small_check(dev)
+    sharded = sharded_phase(smi)
+    host_tools_phase(dev, smi)
 
     paths = {k: {"main": launches[k], "grouped": grouped["launches"][k],
                  "cbf_informed_training_per_iteration": [n[k] for n in informed],
@@ -1675,7 +1810,11 @@ def main() -> int:
                  "cbf_eval_windowed": evals["windowed"]["launches"][k],
                  **{f"itsc25_c{C}": itsc[C]["launches"][k] for C in itsc},
                  "clf_wide": wide_clf["launches"][k],
-                 "at25": at25_run["launches"][k]}
+                 "at25": at25_run["launches"][k],
+                 **{f"sharded_{name}_rank_{r}_iteration_{i + 1}": it[k]
+                    for name, run in (("gloo_2_ranks", sharded["2 ranks, gloo, one card"]),
+                                      ("nccl_1_rank", sharded["1 rank, nccl"]))
+                    for r, rank in enumerate(run["launches"]) for i, it in enumerate(rank)}}
              for k in launches}
     paths["k1"] = [dict(input="grouped", **grouped["k1"]),
                    dict(input="filtered training", **filtered["k1"])]

@@ -267,3 +267,23 @@ def global_to_local(pos_i: Tensor, pos_j: Tensor, rot_i: Tensor) -> Tensor:
     r = _norm(vec)
     theta = torch.atan2(vec[..., 1], vec[..., 0]) - rot_i[..., None]
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
+def current_lanelet_id(
+    point: Tensor, segment_points: Tensor, n_lanelets: Tensor, lanelet_ids: Tensor
+) -> Tensor:
+    """The ID of the lanelet closest to each point along its reference path:
+    point [..., 2]; segment_points [..., L+1, 2] the lanelets' connection
+    points; n_lanelets [...]; lanelet_ids [..., L]. The segment between
+    connection points l and l+1 stands for lanelet l; the first of equally
+    close ones wins. Returns [...]."""
+    starts = segment_points[..., :-1, :]
+    vecs = segment_points[..., 1:, :] - starts
+    rel = point[..., None, :] - starts
+    t = (rel * vecs).sum(-1) / torch.clamp((vecs * vecs).sum(-1), min=1e-12)
+    t = torch.clamp(t, 0.0, 1.0)
+    d = _norm(starts + vecs * t[..., None] - point[..., None, :])
+    seg_idx = torch.arange(d.shape[-1], device=d.device)
+    d = torch.where(seg_idx < n_lanelets[..., None], d, torch.full_like(d, math.inf))
+    nearest = torch.argmin(d, dim=-1)
+    return torch.gather(lanelet_ids, -1, nearest[..., None])[..., 0]

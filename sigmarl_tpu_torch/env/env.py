@@ -52,10 +52,14 @@ class RoadTrafficEnv:
     """Environment facade: the static config and the map tables on one
     device; `reset` and `step` are functions of the state."""
 
-    def __init__(self, cfg: EnvConfig, tables: MapTables, device: torch.device):
+    def __init__(self, cfg: EnvConfig, tables: MapTables, device: torch.device, shard=None):
         self.cfg = cfg
         self.tables = tables
         self.device = device
+        # With a `parallel.mesh.Shard`, this env holds one rank's envs of a
+        # sharded batch, and the steps decided over every env (whether any
+        # env resets, the challenge buffer's record) take a collective.
+        self.shard = shard
         self.bicycle = BicycleParams()
         S = cfg.n_points_short_term
         w = np.linspace(1.0, 0.2, S, dtype=np.float32)
@@ -164,11 +168,16 @@ class RoadTrafficEnv:
             record_u = None if reset_draws is None else reset_draws.record_u
             if record_u is None:
                 record_u = torch.rand((), generator=generator, device=self.device)
-            state, n_recorded = record_challenging_states(cfg, state, record_u)
+            state, n_recorded = record_challenging_states(cfg, state, record_u, self.shard)
             self.challenge_counts[0] += n_recorded
         # The host reads whether any env resets (one device sync per step)
-        # and runs the masked full-width reset only then.
-        if bool(reset_mask.any()):
+        # and runs the masked full-width reset only then; over every rank's
+        # envs when sharded, as the reset also pushes every env's state
+        # buffer once more.
+        any_reset = reset_mask.any()
+        if self.shard is not None:
+            any_reset = self.shard.all_reduce_max(any_reset.to(torch.int32))
+        if bool(any_reset):
             self.reset_steps += 1
             if reset_draws is None:
                 reset_draws = ResetDraws.sample(cfg, generator, self.device, state.cb_valid)
@@ -286,7 +295,7 @@ class RoadTrafficEnv:
 
 
 def record_challenging_states(
-    cfg: EnvConfig, state: WorldState, record_u: Tensor
+    cfg: EnvConfig, state: WorldState, record_u: Tensor, shard=None
 ) -> Tuple[WorldState, Tensor]:
     """Write the state from `n_steps_stored` steps back of every env with an
     agent-agent collision into the ring of `challenge_buffer_size` records,
@@ -294,13 +303,26 @@ def record_challenging_states(
     sequential scan over envs). Where more envs record than the ring has
     slots, the later env wins: only the last `challenge_buffer_size`
     recording envs write, so no two writes share a slot. No host sync.
-    Returns (state, number of envs that recorded [] on the device)."""
-    B, C = cfg.batch_dim, cfg.challenge_buffer_size
+
+    With a `shard` the ring is global: every rank's collision flags and
+    oldest records are gathered in rank order, which is env order, and
+    rank 0's `record_u` decides for all, so every rank writes the same ring
+    (one all-gather per step, on every rank whether its envs reset or not).
+    Returns (state, number of this rank's envs that recorded [] on the
+    device)."""
+    B_local, C = cfg.batch_dim, cfg.challenge_buffer_size
     dev = state.pos.device
-    collided = state.coll_agents.reshape(B, -1).any(-1)
-    do = collided & (record_u <= cfg.probability_record)
+    collided = state.coll_agents.reshape(B_local, -1).any(-1)
     slot_old = (state.sb_pointer.long() % cfg.n_steps_stored).reshape(1)
     oldest = state.state_buffer.index_select(0, slot_old)[0]  # [B, N, 8]
+    if shard is not None:
+        packed = torch.cat([collided.to(oldest.dtype)[:, None], oldest.reshape(B_local, -1),
+                            record_u.to(oldest).reshape(1, 1).expand(B_local, 1)], 1)
+        packed = shard.all_gather(packed)
+        collided, record_u = packed[:, 0] > 0, packed[0, -1]
+        oldest = packed[:, 1:-1].reshape((-1,) + oldest.shape[1:])
+    B = collided.shape[0]
+    do = collided & (record_u <= cfg.probability_record)
     count = torch.cumsum(do.to(torch.int64), 0)
     total = count[-1]
     rank = count - 1
@@ -316,7 +338,7 @@ def record_challenging_states(
         challenge_buffer=buf,
         cb_pointer=((state.cb_pointer.long() + total) % C).to(torch.int32),
         cb_valid=torch.clamp(state.cb_valid.long() + total, max=C).to(torch.int32),
-    ), total
+    ), total if shard is None else do[shard.env_slice(B)].sum()
 
 
 REWARD_METHODS = (
@@ -330,9 +352,13 @@ def _check_ported(p: Parameters) -> None:
             f"the {p.rew_method!r} reward method is not ported to the PyTorch environment")
 
 
-def make_env(parameters: Parameters, device: str | torch.device | None = None) -> RoadTrafficEnv:
+def make_env(
+    parameters: Parameters, device: str | torch.device | None = None, shard=None
+) -> RoadTrafficEnv:
     """Build an environment from run `Parameters` (map parse + table build)
-    on `device`, by default `parameters.device` ("cuda")."""
+    on `device`, by default `parameters.device` ("cuda"). With a
+    `parallel.mesh.Shard` it holds that rank's B/W of the
+    `num_vmas_envs` envs."""
     _check_ported(parameters)
     dev = resolve_device(device if device is not None else parameters.device)
     if parameters.debug_numerics:
@@ -347,6 +373,9 @@ def make_env(parameters: Parameters, device: str | torch.device | None = None) -
         )
     else:
         table_paths = map_data.reference_paths
+    if shard is not None:
+        sl = shard.env_slice(cfg.batch_dim)
+        cfg = dataclasses.replace(cfg, batch_dim=sl.stop - sl.start)
     cfg = dataclasses.replace(
         cfg,
         has_lanelet_neighbors=len(map_data.neighboring_lanelets_idx) > 0,
@@ -356,4 +385,4 @@ def make_env(parameters: Parameters, device: str | torch.device | None = None) -
         map_data, parameters.scenario_type, cfg.n_points_short_term,
         cfg.sample_interval_ref_path, device=dev,
     )
-    return RoadTrafficEnv(cfg, tables, dev)
+    return RoadTrafficEnv(cfg, tables, dev, shard)

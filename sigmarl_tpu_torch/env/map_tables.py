@@ -47,6 +47,10 @@ class MapTables:
     is_loop: Tensor  # [K] bool
     group_id: Tensor  # [K] int32 — each path's group
     group_mask: Tensor  # [G, K] bool — valid paths per group id
+    # Lanelet IDs along each path, for `core/geometry.py::current_lanelet_id`.
+    ref_lanelet_ids: Tensor  # [K, L] int32 (0-padded)
+    n_ref_lanelet_ids: Tensor  # [K] int32
+    ref_lanelet_segment_points: Tensor  # [K, L+1, 2] lanelet connection points
     lanelet_centers: Tensor  # [n_lanelets, Lc, 2]
     n_lanelet_center_points: Tensor  # [n_lanelets] int32
     neighboring_lanelets: Tensor  # [n_lanelets, n_lanelets] bool
@@ -153,6 +157,10 @@ def build_map_tables(
     entry = np.zeros((K, 2, 2), np.float32)
     exit_ = np.zeros((K, 2, 2), np.float32)
     is_loop = np.zeros(K, bool)
+    L = max(len(p.lanelet_ids) for p in paths)
+    lane_ids = np.zeros((K, L), np.int32)
+    n_lane_ids = np.zeros(K, np.int32)
+    seg_pts = np.zeros((K, L + 1, 2), np.float32)
 
     for k, p in enumerate(paths):
         c = p.center_line
@@ -174,6 +182,12 @@ def build_map_tables(
         exit_[k, 0] = p.left_boundary_shared[-1]
         exit_[k, 1] = p.right_boundary_shared[-1]
         is_loop[k] = p.is_loop
+        ids = p.lanelet_ids
+        lane_ids[k, : len(ids)] = ids
+        n_lane_ids[k] = len(ids)
+        sp = map_data.ref_lanelet_segment_points(ids)
+        seg_pts[k, : sp.shape[0]] = sp
+        seg_pts[k, sp.shape[0]:] = sp[-1]
 
     gid = np.asarray(group_ids, np.int32)
     n_groups = max(4, int(gid.max()) + 1) if gid.size else 1
@@ -232,6 +246,9 @@ def build_map_tables(
         is_loop=t(is_loop),
         group_id=t(gid),
         group_mask=t(group_mask),
+        ref_lanelet_ids=t(lane_ids),
+        n_ref_lanelet_ids=t(n_lane_ids),
+        ref_lanelet_segment_points=t(seg_pts),
         lanelet_centers=t(lanelet_centers.astype(np.float32)),
         n_lanelet_center_points=t(n_lc),
         neighboring_lanelets=t(neigh),

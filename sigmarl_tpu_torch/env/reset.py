@@ -84,6 +84,26 @@ class ResetDraws:
         return draws
 
 
+    def to(self, device) -> "ResetDraws":
+        return ResetDraws(*(None if x is None else x.to(device) for x in (
+            self.scenario_gumbel, self.path_u, self.point_u, self.speed_u, self.use_u, self.pick,
+            self.record_u)))
+
+    def for_envs(self, envs: slice) -> "ResetDraws":
+        """The draws of the envs `envs` (a rank's share of a sharded batch):
+        the record's uniform is global, a [CB, B] pick table is cut on its
+        env axis."""
+
+        def cut(x):
+            return None if x is None else x[envs]
+
+        pick = self.pick
+        if pick is not None:
+            pick = pick[envs] if pick.dim() == 1 else pick[:, envs]
+        return ResetDraws(cut(self.scenario_gumbel), cut(self.path_u), cut(self.point_u),
+                          cut(self.speed_u), cut(self.use_u), pick, self.record_u)
+
+
 def _sample_scenario_ids(cfg: EnvConfig, draws: ResetDraws, B: int, device) -> Tensor:
     """Per-env scenario-group id: {1, 2, 3} for cpm_mixed (categorical by
     the Gumbel-max trick), else 0."""

@@ -107,3 +107,17 @@ class MapData:
     reference_paths_merge_out: List[RefPath] = field(default_factory=list)
     neighboring_lanelets_idx: List[List[int]] = field(default_factory=list)
     bounds: Dict[str, float] = field(default_factory=dict)
+
+    def ref_lanelet_segment_points(self, lanelet_ids: List[int]) -> np.ndarray:
+        """The start point of each lanelet's center line plus the end point
+        of the last one [len(ids) + 1, 2]. IDs resolve by `lanelet_id`, and
+        an ID no lanelet carries by its 0-based index (the OSM maps' IDs)."""
+        by_id = {ll.lanelet_id: ll for ll in self.lanelets}
+        pts = []
+        for lid in lanelet_ids:
+            lane = by_id.get(lid)
+            if lane is None:
+                lane = self.lanelets[lid]
+            pts.append(lane.center_line[0])
+        pts.append(lane.center_line[-1])
+        return np.stack(pts, axis=0).astype(np.float32)

@@ -17,10 +17,22 @@ are deleted, and the run configuration rides along as a JSON sidecar.
 Every random number an iteration consumes can be given as tensors
 (`IterationDraws`), so tests can feed it the JAX package's draws; without
 them they come from the trainer's generator on its device.
+
+With a `parallel.mesh.Shard` the trainer is one of W ranks that together
+run the iteration one process runs over all B envs: each rank rolls out
+its B/W envs (a global `IterationDraws` is sliced to them; without draws
+the env's numbers come from a generator seeded by (seed, rank)), the
+minibatches are global (permutations, entropy noise and PRB samples come
+from the generator every rank shares), each rank's loss sums its rows of
+a minibatch over the whole minibatch's size, and the gradients are summed
+over the ranks before the clipped Adam step, so every rank takes the same
+step. PRB priorities are gathered over the ranks, metrics reduced, and
+only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -34,6 +46,7 @@ from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.env.env import RoadTrafficEnv, make_env
 from sigmarl_tpu_torch.env.reset import ResetDraws
 from sigmarl_tpu_torch.env.structs import WorldState
+from sigmarl_tpu_torch.parallel.mesh import Shard
 from sigmarl_tpu_torch.rl import checkpoint as ckpt
 from sigmarl_tpu_torch.rl.networks import (
     CentralizedCritic,
@@ -171,6 +184,13 @@ class IterationDraws:
     communication_noise: Optional[Tensor] = None
     priority_entropy_noise: Optional[Tensor] = None
 
+    def to(self, device) -> "IterationDraws":
+        moved = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        for k, v in moved.items():
+            if v is not None:
+                moved[k] = [r.to(device) for r in v] if k == "reset_draws" else v.to(device)
+        return IterationDraws(**moved)
+
 
 def _draw(draws: IterationDraws | None, name: str, index):
     """`draws.<name>[index]`, or None where the draws or the field are
@@ -179,32 +199,45 @@ def _draw(draws: IterationDraws | None, name: str, index):
     return None if x is None else x[index]
 
 
-def compute_td_error(reward, values, next_values, done, gamma: float = 0.9) -> Tensor:
+def compute_td_error(reward, values, next_values, done, gamma: float = 0.9,
+                     shard: Shard | None = None) -> Tensor:
     """Normalized TD-error priorities of the prioritized replay buffer:
     |TD error| averaged over the cooperative agents, min-max normalized to
-    [1e-3, 10]."""
+    [1e-3, 10] (the extremes over every rank's rows with a `shard`)."""
     not_done = (~done).to(reward.dtype)[..., None]
     td = torch.abs(reward + gamma * next_values * not_done - values).mean(-1)
-    rng = torch.clamp(td.max() - td.min(), min=1e-3)
-    return torch.clamp((td - td.min()) / rng * 10.0, 1e-3, 10.0)
+    if shard is None:
+        lo, hi = td.min(), td.max()
+    else:  # one rank may hold none of the rows
+        inf = torch.full((1,), math.inf, device=td.device)
+        ext = shard.all_reduce_max(torch.stack([-torch.cat([td.reshape(-1), inf]).min(),
+                                                torch.cat([td.reshape(-1), -inf]).max()]))
+        lo, hi = -ext[0], ext[1]
+    rng = torch.clamp(hi - lo, min=1e-3)
+    return torch.clamp((td - lo) / rng * 10.0, 1e-3, 10.0)
 
 
 class MAPPOCAVs:
     """Multi-agent PPO trainer. Runs on `device` (by default
-    `parameters.device`, "cuda")."""
+    `parameters.device`, "cuda"); with a `shard`, as that rank of a
+    data-parallel group (its env then holds the rank's envs)."""
 
     def __init__(
         self,
         parameters: Parameters,
         env: Optional[RoadTrafficEnv] = None,
         device: str | torch.device | None = None,
+        shard: Shard | None = None,
     ):
         self.parameters = p = parameters
+        self.shard = shard
         if p.debug_numerics:
             enable_debug_numerics()
         self.env = env if env is not None else make_env(
-            p, device=device if device is not None else p.device
+            p, device=device if device is not None else p.device, shard=shard
         )
+        if shard is not None and self.env.shard is not shard:
+            raise ValueError("a sharded trainer needs an env built with the same shard")
         self.device = dev = self.env.device
         cfg = self.env.cfg
 
@@ -258,7 +291,14 @@ class MAPPOCAVs:
             )
         self.low = -self.env.action_limits
         self.high = self.env.action_limits
+        # The generator every rank shares (permutations, entropy noise, PRB
+        # samples) and the one of this rank's envs (rollout draws); one and
+        # the same without a shard.
         self.generator = torch.Generator(device=dev).manual_seed(p.random_seed)
+        self.env_generator = self.generator
+        if shard is not None:
+            seed = int(np.random.SeedSequence([p.random_seed, shard.rank]).generate_state(1)[0])
+            self.env_generator = torch.Generator(device=dev).manual_seed(seed)
 
         self.ppo_cfg = PPOConfig(
             gamma=p.gamma, lmbda=p.lmbda, clip_epsilon=p.clip_epsilon, entropy_eps=p.entropy_eps
@@ -306,7 +346,7 @@ class MAPPOCAVs:
     ):
         """One env step of the rollout, through the filter the flags ask for."""
         p, env, cbf = self.parameters, self.env, self.cbf_filter
-        kw = dict(generator=self.generator, reset_draws=reset_draws, obs_noise=obs_noise)
+        kw = dict(generator=self.env_generator, reset_draws=reset_draws, obs_noise=obs_noise)
         if p.is_using_cbf_training and cbf is not None:
             if p.is_solve_qp and p.is_apply_cbf_action:
                 return cbf_filtered_step(env, cbf, env_state, action, cbf_noise=cbf_noise, **kw)
@@ -316,9 +356,14 @@ class MAPPOCAVs:
     def initial_state(
         self, reset_draws: ResetDraws | None = None, obs_noise: Tensor | None = None
     ) -> TrainState:
-        """A fresh episode in every env, and the trainer's networks."""
+        """A fresh episode in every env, and the trainer's networks. With a
+        shard, global draws are sliced to the rank's envs."""
+        if self.shard is not None:
+            sl = self.shard.env_slice(self.parameters.num_vmas_envs)
+            reset_draws = None if reset_draws is None else reset_draws.for_envs(sl)
+            obs_noise = None if obs_noise is None else obs_noise[sl]
         env_state, obs = self.env.reset(
-            generator=self.generator, draws=reset_draws, obs_noise=obs_noise
+            generator=self.env_generator, draws=reset_draws, obs_noise=obs_noise
         )
         B, N = obs.shape[:2]
         return TrainState(
@@ -341,7 +386,7 @@ class MAPPOCAVs:
         """The policy's actions in the rollout's mode. Returns (action,
         log_prob, the observation each agent acted on, priority scores and
         their log-probabilities (None without learned priority))."""
-        low, high, gen = self.low, self.high, self.generator
+        low, high, gen = self.low, self.high, self.env_generator
         noise = _draw(draws, "action_noise", t)
         if self.use_prio:
             prio = priority_rank(
@@ -367,12 +412,37 @@ class MAPPOCAVs:
         action, log_prob = tanh_normal_sample(loc, scale, low, high, generator=gen, noise=noise)
         return action, log_prob, obs, None, None
 
+    def local_draws(self, draws: IterationDraws | None) -> IterationDraws | None:
+        """The draws of this rank's rollout: every field with an env axis
+        sliced to the rank's envs; the update's fields stay global."""
+        if self.shard is None or draws is None:
+            return draws
+        sl = self.shard.env_slice(self.parameters.num_vmas_envs)
+
+        def cut(x, axis):
+            return None if x is None else x[(slice(None),) * axis + (sl,)]
+
+        # Action noise: [T, B, ...]; per priority turn [T, N, B, 2]; the
+        # opponent-modeling passes [T, 2, B, N, 2].
+        act_axis = 2 if (self.use_prio or self.use_om) else 1
+        return dataclasses.replace(
+            draws,
+            action_noise=cut(draws.action_noise, act_axis),
+            reset_draws=[r.for_envs(sl) for r in draws.reset_draws],
+            obs_noise=cut(draws.obs_noise, 1),
+            cbf_noise=cut(draws.cbf_noise, 1),
+            priority_noise=cut(draws.priority_noise, 1),
+            priority_perms=cut(draws.priority_perms, 1),
+            communication_noise=cut(draws.communication_noise, 2),
+        )
+
     @torch.no_grad()
     def rollout(self, state: TrainState, draws: IterationDraws | None = None):
-        """`max_steps` transitions of every env. Returns (env_state, obs,
-        ep_reward_accum, batch, solved) with the batch's fields stacked to
-        [T, ...] and `solved` the filter's solved share over the rollout
-        (None without a filtered step)."""
+        """`max_steps` transitions of every env (of the rank's envs with a
+        shard, from draws already sliced by `local_draws`). Returns
+        (env_state, obs, ep_reward_accum, batch, solved) with the batch's
+        fields stacked to [T, ...] and `solved` the filter's solved flags
+        [T, B] (None without a filtered step)."""
         env_state, obs, ep_accum = state.env_state, state.obs, state.ep_reward_accum
         steps: List[Transition] = []
         solved = []
@@ -383,7 +453,7 @@ class MAPPOCAVs:
                 cbf_noise=_draw(draws, "cbf_noise", t), obs_noise=_draw(draws, "obs_noise", t),
             )
             if "cbf_solved" in info:
-                solved.append(info["cbf_solved"].float().mean())
+                solved.append(info["cbf_solved"])
             ep_accum = ep_accum + reward
             ep_at_done = ep_accum
             ep_accum = torch.where(done[:, None], torch.zeros_like(ep_accum), ep_accum)
@@ -393,24 +463,25 @@ class MAPPOCAVs:
             ))
             obs = next_obs
         batch = Transition(*(None if f[0] is None else torch.stack(f) for f in zip(*steps)))
-        return env_state, obs, ep_accum, batch, torch.stack(solved).mean() if solved else None
+        return env_state, obs, ep_accum, batch, torch.stack(solved) if solved else None
 
     # ------------------------------------------------------------- update
     def loss(self, nets, mb: Dict[str, Tensor], entropy_noise: Tensor,
-             prio_entropy_noise: Tensor | None = None):
+             prio_entropy_noise: Tensor | None = None, count: int | None = None):
         """The PPO loss of a minibatch (obs, action, log_prob, adv, vt) and
         its statistics. `nets` = (policy, critic) or, with learned priority,
         (policy, critic, priority policy, priority critic): then the
         priority's Clip-PPO loss on its score stream (prio_obs,
         prio_scores, prio_log_prob, prio_adv, prio_vt), with its own
         entropy noise [mb, N, 1], is added and reported as
-        `loss_priority`."""
+        `loss_priority`. With `count`, `mb` holds one rank's rows of a
+        minibatch of `count` rows (`ppo_losses`)."""
         policy, critic = nets[:2]
         loc, scale = policy(mb["obs"])
         v = critic(mb["obs"])[..., 0]
         total, stats = ppo_losses(
             loc, scale, v, mb["action"], mb["log_prob"], mb["adv"], mb["vt"],
-            self.low, self.high, self.ppo_cfg, entropy_noise,
+            self.low, self.high, self.ppo_cfg, entropy_noise, count,
         )
         if len(nets) > 2:
             prio_policy, prio_critic = nets[2:]
@@ -419,22 +490,26 @@ class MAPPOCAVs:
             one = torch.ones((1,), device=p_v.device)
             p_total, _ = ppo_losses(
                 p_loc, p_scale, p_v, mb["prio_scores"][..., None], mb["prio_log_prob"],
-                mb["prio_adv"], mb["prio_vt"], -one, one, self.ppo_cfg, prio_entropy_noise,
+                mb["prio_adv"], mb["prio_vt"], -one, one, self.ppo_cfg, prio_entropy_noise, count,
             )
             total = total + p_total
             stats = {**stats, "loss_priority": p_total}
         return total, stats
 
     def minibatch_update(self, nets, opt_state: AdamState, mb, entropy_noise,
-                         prio_entropy_noise: Tensor | None = None):
+                         prio_entropy_noise: Tensor | None = None, count: int | None = None):
         """One PPO gradient step on a minibatch. `nets` as in `loss`,
         updated in place. Returns (opt_state, loss stats). Under
-        `debug_numerics` a non-finite loss raises before the step."""
+        `debug_numerics` a non-finite loss raises before the step. With a
+        shard, `mb` holds the rank's rows of a minibatch of `count` rows,
+        and the gradients are summed over the ranks before the step."""
         params = self.parameter_list(*nets)
-        total, stats = self.loss(nets, mb, entropy_noise, prio_entropy_noise)
+        total, stats = self.loss(nets, mb, entropy_noise, prio_entropy_noise, count)
         if self.parameters.debug_numerics:
             assert_finite(total.detach(), "ppo_loss")
         grads = torch.autograd.grad(total, params)
+        if self.shard is not None:
+            grads = self.shard.all_reduce_grads(grads)
         opt_state = self.optimizer.step(params, grads, opt_state)
         return opt_state, {k: v.detach() for k, v in stats.items()}
 
@@ -444,14 +519,15 @@ class MAPPOCAVs:
         reward, the loss statistics (means over minibatches, then epochs),
         the filter's solved share when the rollout filters
         (`cbf_solved_share`) and `seconds_{rollout,gae,update}` (host
-        clock, the card synchronised at each phase's end)."""
-        p, dev = self.parameters, self.device
+        clock, the card synchronised at each phase's end). With a shard,
+        `draws` are global and the metrics are over every rank's envs."""
+        p, dev, shard = self.parameters, self.device, self.shard
         nets = state.networks
         n_mb = self.n_minibatches
         t0 = time.perf_counter()
 
         # 1. Collect frames_per_batch = B * T frames.
-        env_state, obs, ep_accum, batch, solved = self.rollout(state, draws)
+        env_state, obs, ep_accum, batch, solved = self.rollout(state, self.local_draws(draws))
         self._sync()
         t1 = time.perf_counter()
 
@@ -485,13 +561,21 @@ class MAPPOCAVs:
                 prio_log_prob=flat(batch.prio_log_prob), prio_adv=flat(prio_adv),
                 prio_vt=flat(prio_vt),
             )
+        T, B_local = batch.reward.shape[:2]
         if p.is_prb:
-            priorities = compute_td_error(batch.reward, values, next_values, batch.done).reshape(-1)
+            priorities = compute_td_error(batch.reward, values, next_values, batch.done,
+                                          shard=shard)
             data.update(
                 reward=flat(batch.reward), next_obs=flat(batch.next_obs),
                 done=batch.done.reshape(-1),
             )
-        M = data["obs"].shape[0]
+            if shard is not None:  # global frame order t * B + b
+                priorities = shard.all_gather(priorities[None]).permute(1, 0, 2)
+            priorities = priorities.reshape(-1)
+        # Frames are indexed t * B + b over every env; a rank holds the
+        # frames of its envs at t * B_local + (b - first env).
+        B = B_local * (1 if shard is None else shard.world)
+        M = T * B
         mb_size = M // n_mb
         mb_shape = (mb_size,) + data["action"].shape[1:]
         opt_state = state.opt_state
@@ -503,15 +587,13 @@ class MAPPOCAVs:
             mb_stats = []
             for m in range(n_mb):
                 if p.is_prb:
-                    if draws is None:
+                    idx = _draw(draws, "prb_indices", (e, m))
+                    if idx is None:
                         probs = torch.softmax(PRB_ALPHA * torch.log(priorities), dim=0)
                         idx = torch.multinomial(probs, mb_size, replacement=True,
                                                 generator=self.generator)
-                    else:
-                        idx = draws.prb_indices[e, m]
                 else:
                     idx = perm[m * mb_size:(m + 1) * mb_size]
-                mb = {k: v[idx] for k, v in data.items()}
                 noise = _draw(draws, "entropy_noise", (e, m))
                 if noise is None:
                     noise = torch.randn(mb_shape, generator=self.generator, device=dev)
@@ -521,7 +603,16 @@ class MAPPOCAVs:
                     if prio_noise is None:
                         prio_noise = torch.randn(mb_shape[:-1] + (1,), generator=self.generator,
                                                  device=dev)
-                opt_state, stats = self.minibatch_update(nets, opt_state, mb, noise, prio_noise)
+                rows = local_idx = None
+                if shard is not None:  # this rank's rows of the minibatch
+                    env, t_idx = idx % B, idx // B
+                    rows = (env // B_local) == shard.rank
+                    local_idx = t_idx[rows] * B_local + env[rows] - shard.rank * B_local
+                    noise = noise[rows]
+                    prio_noise = None if prio_noise is None else prio_noise[rows]
+                mb = {k: v[idx if shard is None else local_idx] for k, v in data.items()}
+                opt_state, stats = self.minibatch_update(
+                    nets, opt_state, mb, noise, prio_noise, None if shard is None else mb_size)
                 if p.is_prb:
                     # Refresh the sampled frames' priorities with the
                     # updated critic.
@@ -529,7 +620,11 @@ class MAPPOCAVs:
                         td = compute_td_error(
                             mb["reward"], state.critic(mb["obs"])[..., 0],
                             state.critic(self._pad(mb["next_obs"]))[..., 0], mb["done"],
+                            shard=shard,
                         )
+                    if shard is not None:  # each row from the rank that holds it
+                        td = shard.all_reduce_sum(
+                            torch.zeros(mb_size, device=dev).masked_scatter(rows, td))
                     priorities[idx] = td
                 mb_stats.append(stats)
             epoch_stats.append({k: torch.stack([s[k] for s in mb_stats]).mean()
@@ -539,23 +634,38 @@ class MAPPOCAVs:
 
         # 4. Mean episodic reward over the done events of the rollout.
         done_f = batch.done[..., None].to(batch.reward.dtype)  # [T, B, 1]
-        n_done = done_f.sum() * self.env.cfg.n_agents
+        n_done = done_f.sum()
         ep_rew_sum = (batch.ep_reward_at_done * done_f).sum()
+        loss_stats = {k: torch.stack([s[k] for s in epoch_stats]).mean() for k in epoch_stats[0]}
+        if shard is None:
+            reward_mean = batch.reward.mean()
+            solved_share = None if solved is None else torch.stack(
+                [s.float().mean() for s in solved]).mean()
+        else:  # sums over every rank's envs; the loss terms are partial sums
+            sums = shard.all_reduce_sum(torch.stack([
+                n_done, ep_rew_sum, batch.reward.sum(),
+                torch.zeros((), device=dev) if solved is None else solved.float().sum(),
+                *loss_stats.values()]))
+            n_done, ep_rew_sum = sums[0], sums[1]
+            reward_mean = sums[2] / (M * batch.reward.shape[-1])
+            solved_share = None if solved is None else sums[3] / M
+            loss_stats = dict(zip(loss_stats, sums[4:]))
+        n_agent_done = n_done * self.env.cfg.n_agents
         episode_reward_mean = torch.where(
-            n_done > 0, ep_rew_sum / torch.clamp(n_done, min=1.0),
+            n_agent_done > 0, ep_rew_sum / torch.clamp(n_agent_done, min=1.0),
             torch.full((), math.nan, device=dev),
         )
         metrics = {
             "episode_reward_mean": episode_reward_mean,
-            "n_done": done_f.sum(),
-            "reward_mean": batch.reward.mean(),
-            **{k: torch.stack([s[k] for s in epoch_stats]).mean() for k in epoch_stats[0]},
+            "n_done": n_done,
+            "reward_mean": reward_mean,
+            **loss_stats,
             "seconds_rollout": t1 - t0,
             "seconds_gae": t2 - t1,
             "seconds_update": t3 - t2,
         }
-        if solved is not None:
-            metrics["cbf_solved_share"] = solved
+        if solved_share is not None:
+            metrics["cbf_solved_share"] = solved_share
         new_state = TrainState(
             policy=state.policy, critic=state.critic, opt_state=opt_state,
             env_state=env_state, obs=obs, ep_reward_accum=ep_accum,
@@ -563,6 +673,12 @@ class MAPPOCAVs:
             prio_critic=state.prio_critic,
         )
         return new_state, metrics
+
+    def challenge_counts(self) -> Tensor:
+        """The challenge buffer's (records, replays) since the env was
+        built, over every rank's envs with a shard."""
+        c = self.env.challenge_counts
+        return c if self.shard is None else self.shard.all_reduce_sum(c)
 
     def checkpoint_params(self, state: TrainState) -> Dict[str, dict]:
         return {"policy": to_jax_params(state.policy), "critic": to_jax_params(state.critic)}
@@ -575,6 +691,8 @@ class MAPPOCAVs:
         hold the policy and the critic only."""
         p = self.parameters
         state = self.initial_state()
+        # Every rank holds the same networks; rank 0 writes them.
+        writes = self.shard is None or self.shard.rank == 0
         saver = ckpt.RewardKeyedCheckpointer(p)
         reward_history = list(self._restored_history)
         for i in range(p.n_iters):
@@ -582,12 +700,13 @@ class MAPPOCAVs:
             rew = float(metrics["episode_reward_mean"])
             rew = round(rew, 2) if np.isfinite(rew) else rew
             reward_history.append(rew)
-            if p.is_save_intermediate_model:
+            if p.is_save_intermediate_model and writes:
                 saver.maybe_save(rew, self.checkpoint_params(state), reward_history)
             if progress_callback:
                 progress_callback(i, metrics)
 
-        saver.save_final(self.checkpoint_params(state), reward_history)
+        if writes:
+            saver.save_final(self.checkpoint_params(state), reward_history)
         self.opt_state = state.opt_state
         return (
             self.env,

@@ -9,6 +9,7 @@ dimension is wrong for MARL.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -63,23 +64,33 @@ def ppo_losses(
     high: Tensor,
     cfg: PPOConfig,
     entropy_noise: Tensor,
+    count: int | None = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Clip-PPO loss terms for one minibatch.
 
     Shapes: loc/scale/actions/entropy_noise [M, N, A]; values/old_log_prob/
     advantages/value_targets [M, N]. The entropy estimate draws one
     reparameterised sample through the squash from the standard-normal
-    `entropy_noise`, so its gradient flows through loc and scale."""
+    `entropy_noise`, so its gradient flows through loc and scale.
+
+    Each term is a mean over the minibatch's rows. With `count` the rows
+    are one rank's part of a minibatch of `count` rows, and each term is
+    their sum over count (the ranks' terms and gradients then sum to the
+    whole minibatch's)."""
+
+    def mean(x: Tensor) -> Tensor:
+        return x.mean() if count is None else x.sum() / (count * math.prod(x.shape[1:]))
+
     log_prob = tanh_normal_log_prob(actions, loc, scale, low, high)
     ratio = torch.exp(log_prob - old_log_prob)
     surr1 = ratio * advantages
     surr2 = torch.clamp(ratio, 1 - cfg.clip_epsilon, 1 + cfg.clip_epsilon) * advantages
-    loss_objective = -torch.minimum(surr1, surr2).mean()
+    loss_objective = -mean(torch.minimum(surr1, surr2))
 
-    loss_critic = cfg.critic_coeff * smooth_l1(values, value_targets).mean()
+    loss_critic = cfg.critic_coeff * mean(smooth_l1(values, value_targets))
 
     _, sample_lp = tanh_normal_sample(loc, scale, low, high, noise=entropy_noise)
-    entropy = -sample_lp.mean()
+    entropy = -mean(sample_lp)
     loss_entropy = -cfg.entropy_eps * entropy
 
     total = loss_objective + loss_critic + loss_entropy
@@ -88,6 +99,6 @@ def ppo_losses(
         "loss_critic": loss_critic,
         "loss_entropy": loss_entropy,
         "entropy": entropy,
-        "ratio_mean": ratio.mean(),
+        "ratio_mean": mean(ratio),
     }
     return total, stats

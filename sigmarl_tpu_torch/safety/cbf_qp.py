@@ -47,7 +47,7 @@ from sigmarl_tpu_torch.safety.circles import CircleApproximation, circle_centers
 from sigmarl_tpu_torch.safety.grouping import group_agents_k_nearest, same_group_mask
 from sigmarl_tpu_torch.safety.kinematics import CenterKinematics, center_kinematics
 from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, topk_chunks, window_chunks
-from sigmarl_tpu_torch.safety.qp import StructuredConstraintSet, solve_structured_qp
+from sigmarl_tpu_torch.safety.qp import ConstraintSet, StructuredConstraintSet, solve_structured_qp
 
 Tensor = torch.Tensor
 
@@ -494,6 +494,32 @@ class CBFSafetyFilter:
             torch.cat([torch.where(same, cfg.pair_slack_weight, cross_ws), cross_ws], dim=2),
             torch.cat([torch.where(same, self._wl_value(), cross_wl), cross_wl], dim=2),
             torch.cat([torch.ones_like(same), ~same], dim=2),
+        )
+
+    def to_dense(self, cons: StructuredConstraintSet) -> ConstraintSet:
+        """The dense [B, M, 2N] form of a structured set: single-agent rows
+        (n, k) first, then pair rows (p, k); controls ordered (agent,
+        component). For tests and oracle checks only."""
+        B, N, Ks = cons.A_s.shape[:3]
+        P, Kp = cons.A_pi.shape[1:3]
+        dev, dt = cons.A_s.device, cons.A_s.dtype
+        eye = torch.eye(N, dtype=dt, device=dev)
+        ei = eye[torch.as_tensor(np.asarray(cons.pair_i), dtype=torch.long, device=dev)]
+        ej = eye[torch.as_tensor(np.asarray(cons.pair_j), dtype=torch.long, device=dev)]
+        A_single = torch.einsum("bnkc,nm->bnkmc", cons.A_s, eye).reshape(B, N * Ks, 2 * N)
+        A_pair = (torch.einsum("bpkc,pn->bpknc", cons.A_pi, ei)
+                  + torch.einsum("bpkc,pn->bpknc", cons.A_pj, ej)).reshape(B, P * Kp, 2 * N)
+
+        def cat(single, pair):
+            return torch.cat([single.reshape(B, N * Ks), pair.reshape(B, P * Kp)], dim=1)
+
+        return ConstraintSet(
+            A=torch.cat([A_single, A_pair], dim=1),
+            b=cat(cons.b_s, cons.b_p),
+            h=cat(cons.h_s, cons.h_p),
+            w_slack=cat(cons.ws_s, cons.ws_p),
+            w_lambda=cat(cons.wl_s, cons.wl_p),
+            valid=cat(cons.valid_s, cons.valid_p),
         )
 
     def filter_actions(

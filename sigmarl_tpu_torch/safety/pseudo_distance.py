@@ -93,6 +93,22 @@ def pseudo_distance_seg(points: Tensor, seg: Tensor) -> Tensor:
     return torch.sqrt(torch.where(ok, d2, _BIG * _BIG).min(dim=-1).values)
 
 
+def pseudo_distance_to_polyline(
+    points: Tensor,  # [..., Q, 2] query points
+    boundary: Tensor,  # [..., P, 2] polyline vertices (padded by repetition)
+    tangents: Tensor,  # [..., P, 2] pseudo tangent vectors at the vertices
+    n_valid: Tensor | None = None,  # [...] number of valid vertices
+) -> Tensor:
+    """Pseudo distance of each query point to the polyline [..., Q]: per
+    segment, the query and both end tangents in the segment's frame, the
+    projection factor lambda = (x + y m_b) / (l - y (m_t - m_b)) from the
+    tangents' slopes, and the norm of (x - lambda l, y), valid for lambda in
+    [-_LAM_EPS, 1 + _LAM_EPS); the min over valid segments (segments past
+    `n_valid` and degenerate ones, of length <= 1e-9, never count; _BIG
+    where none does)."""
+    return pseudo_distance_seg(points, segment_table(boundary, tangents, n_valid))
+
+
 def counting_segments(points: Tensor, seg: Tensor) -> Tensor:
     """[..., S] bool: the segment rows that count for at least one of the
     queries [..., Q, 2] (the rest leave every query's minimum as it is)."""

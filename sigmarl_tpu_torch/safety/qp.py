@@ -14,7 +14,9 @@ box-constrained minimization of a convex C^1 piecewise-quadratic in u only
 
 solved by a damped projected Newton method with a fixed iteration budget.
 The whole solve runs in the CUDA kernel of `ops/qp.py`; this module holds
-the constraint set, the row normalization and the closed-form phi terms.
+the constraint set, the row normalization and the closed-form phi terms,
+and a dense-form solve in plain PyTorch that the tests use as an oracle
+(`ConstraintSet`, `solve_boxed_penalty_qp`, `eliminated_lambda`).
 """
 
 from __future__ import annotations
@@ -67,6 +69,129 @@ def _phi_terms(r: Tensor, h: Tensor, ws: Tensor, wl: Tensor) -> Tuple[Tensor, Te
     zero = torch.zeros_like(r)
     ddphi = torch.where(active, torch.where(interior, ddphi_int, 2.0 * ws), zero)
     return vals, dphi, ddphi
+
+
+@dataclass
+class ConstraintSet:
+    """M one-sided constraints per problem in dense form: a . u + b + h*lam
+    >= -s. Shapes (leading batch dims allowed): A [..., M, d]; b, h,
+    w_slack (slack penalty weight), w_lambda (lambda penalty weight; h = 0
+    turns a row's lambda channel off) and valid (row mask) [..., M].
+    The dense form is the oracle of the tests (`solve_boxed_penalty_qp`);
+    the filter solves the structured form in the kernel."""
+
+    A: Tensor
+    b: Tensor
+    h: Tensor
+    w_slack: Tensor
+    w_lambda: Tensor
+    valid: Tensor
+
+
+def solve_boxed_penalty_qp(
+    cons: ConstraintSet,
+    u_nom: Tensor,  # [..., d]
+    w_u: Tensor,  # [d] diagonal tracking weights (cost: sum w_u (u - u_nom)^2)
+    u_lo: Tensor,  # [d]
+    u_hi: Tensor,  # [d]
+    n_iters: int = 12,
+    ridge: float = 1e-8,
+) -> Tuple[Tensor, Tensor]:
+    """Minimize F(u) over the box [u_lo, u_hi] by projected damped Newton on
+    the dense form, from clip(u_nom). Each row is divided by its coefficient
+    norm (the slack weight scaled by its square and capped at 3e6). Per
+    iteration: the Gauss-Newton Hessian with the binding set pinned (a
+    variable at a bound whose gradient points out), the outward components
+    of the step removed, then a line search along the step (3 bisections
+    on the sign of F' and 2 one-dimensional Newton steps, in [0, the first
+    bound crossing capped at 4]), the clipped arc at 1 and 4 tried too, and
+    the best candidate taken only where it lowers F. Returns (u_star
+    [..., d], F(u_star) [...])."""
+    d = u_nom.shape[-1]
+    s = torch.clamp(torch.linalg.norm(cons.A, dim=-1), min=1e-6)
+    A, b, h = cons.A / s[..., None], cons.b / s, cons.h / s
+    ws = torch.clamp(cons.w_slack * s * s, max=3e6)
+    wl, valid = cons.w_lambda, cons.valid
+    zero = torch.zeros((), dtype=u_nom.dtype, device=u_nom.device)
+
+    def residual(u):
+        return torch.einsum("...md,...d->...m", A, u) + b
+
+    def F_parts(u):
+        val, dphi, ddphi = _phi_terms(residual(u), h, ws, wl)
+        val, dphi, ddphi = (torch.where(valid, x, zero) for x in (val, dphi, ddphi))
+        F = (w_u * (u - u_nom) ** 2).sum(-1) + val.sum(-1)
+        grad = 2.0 * w_u * (u - u_nom) + torch.einsum("...md,...m->...d", A, dphi)
+        return F, grad, ddphi
+
+    eye = torch.eye(d, dtype=u_nom.dtype, device=u_nom.device)
+    eps_b = 1e-6 * (u_hi - u_lo)
+
+    def newton_step(u):
+        F, grad, ddphi = F_parts(u)
+        H = 2.0 * torch.diag(w_u) + torch.einsum("...md,...m,...me->...de", A, ddphi, A)
+        H = H + ridge * eye
+        at_lo, at_hi = u <= u_lo + eps_b, u >= u_hi - eps_b
+        bind = (at_lo & (grad > 0)) | (at_hi & (grad < 0))
+        free = (~bind).to(u.dtype)
+        H = H * free[..., :, None] * free[..., None, :] + bind.to(u.dtype)[..., None] * eye
+        step = torch.linalg.solve(H, -(grad * free)[..., None])[..., 0]
+        step = torch.where((at_lo & (step < 0)) | (at_hi & (step > 0)), zero, step)
+
+        big = torch.full((), 1e30, dtype=u.dtype, device=u.device)
+        one = torch.ones((), dtype=u.dtype, device=u.device)
+        pos, neg = step > 1e-30, step < -1e-30
+        a_hi = torch.where(pos, (u_hi - u) / torch.where(pos, step, one), big)
+        a_lo = torch.where(neg, (u_lo - u) / torch.where(neg, step, one), big)
+        a_cap = torch.clamp(torch.clamp(torch.minimum(a_hi, a_lo).min(-1).values, max=4.0),
+                            min=0.0)
+
+        dr = torch.where(valid, torch.einsum("...md,...d->...m", A, step), zero)
+        q1 = (2.0 * w_u * (u - u_nom) * step).sum(-1)
+        q2 = (w_u * step * step).sum(-1)
+        r0 = residual(u)
+
+        def dF(alpha):
+            _, dphi_a, ddphi_a = _phi_terms(r0 + alpha[..., None] * dr, h, ws, wl)
+            dphi_a = torch.where(valid, dphi_a, zero)
+            ddphi_a = torch.where(valid, ddphi_a, zero)
+            return (q1 + 2.0 * q2 * alpha + (dphi_a * dr).sum(-1),
+                    2.0 * q2 + (ddphi_a * dr * dr).sum(-1))
+
+        g_cap = dF(a_cap)[0]
+        lo_a, hi_a = torch.zeros_like(a_cap), a_cap
+        for _ in range(3):
+            mid = 0.5 * (lo_a + hi_a)
+            up = dF(mid)[0] > 0
+            hi_a = torch.where(up, mid, hi_a)
+            lo_a = torch.where(up, lo_a, mid)
+        alpha = 0.5 * (lo_a + hi_a)
+        for _ in range(2):
+            g1, g2d = dF(alpha)
+            alpha = torch.minimum(torch.maximum(alpha - g1 / torch.clamp(g2d, min=1e-12), lo_a),
+                                  hi_a)
+        alpha = torch.where(g_cap <= 0, a_cap, alpha)
+
+        best_u = torch.minimum(torch.maximum(u + alpha[..., None] * step, u_lo), u_hi)
+        best_F = F_parts(best_u)[0]
+        for a_arc in (1.0, 4.0):
+            u_a = torch.minimum(torch.maximum(u + a_arc * step, u_lo), u_hi)
+            F_a = F_parts(u_a)[0]
+            take = F_a < best_F
+            best_u = torch.where(take[..., None], u_a, best_u)
+            best_F = torch.where(take, F_a, best_F)
+        return torch.where((best_F < F)[..., None], best_u, u)
+
+    u = torch.minimum(torch.maximum(u_nom, u_lo), u_hi)
+    for _ in range(n_iters):
+        u = newton_step(u)
+    return u, F_parts(u)[0]
+
+
+def eliminated_lambda(cons: ConstraintSet, u: Tensor) -> Tensor:
+    """The optimal lambda of each constraint at u (diagnostics) [..., M]."""
+    r = torch.einsum("...md,...d->...m", cons.A, u) + cons.b
+    return _phi_candidates(r, cons.h, cons.w_slack, cons.w_lambda)[1]
 
 
 @dataclass

@@ -7,6 +7,7 @@ on the card against the CPU. They need a CUDA device."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, NamedTuple
 
 import numpy as np
@@ -205,3 +206,182 @@ def challenge_buffer_steps_card_vs_cpu(dev: str = "cuda", B: int = 8) -> List[Ch
                         max(0, B - records), 0, False))
     checks.append(Check("no env replayed", int(replays == 0), 0, False))
     return [c._replace(ok=c.value <= c.limit) for c in checks]
+
+
+def iteration_draws(tr, generator: torch.Generator):
+    """Every random number of one plain or CBF-filtered training iteration
+    of trainer `tr` (one process, all B envs; no observation noise, XP-MARL
+    or opponent modeling), drawn from `generator` on its device. With the
+    challenge buffer, each step's replay picks are a [CB, B] table by
+    valid count."""
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.rl.mappo_cavs import IterationDraws
+
+    p, cfg = tr.parameters, tr.env.cfg
+    if tr.use_prio or tr.use_om or cfg.is_obs_noise or p.is_prb or tr.shard is not None:
+        raise ValueError("iteration_draws covers plain and filtered iterations in one process")
+    T, B, N, E = p.max_steps, cfg.batch_dim, cfg.n_agents, p.num_epochs
+    dev = generator.device
+    resets = []
+    for _ in range(T):
+        d = ResetDraws.sample(cfg, generator, dev)
+        if cfg.is_challenging_initial_state_buffer:
+            v = torch.arange(1, cfg.challenge_buffer_size + 1, device=dev)[:, None]
+            u = torch.rand((B,), generator=generator, device=dev)
+            d.pick = torch.minimum((u[None] * v).long(), v - 1)
+            d.record_u = torch.rand((), generator=generator, device=dev)
+        resets.append(d)
+    M = T * B
+    return IterationDraws(
+        action_noise=torch.randn((T, B, N, 2), generator=generator, device=dev),
+        reset_draws=resets,
+        permutations=torch.stack([torch.randperm(M, generator=generator, device=dev)
+                                  for _ in range(E)]),
+        entropy_noise=torch.randn((E, tr.n_minibatches, M // tr.n_minibatches, N, 2),
+                                  generator=generator, device=dev),
+    )
+
+
+def _flat_parameters(state) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1) for n in state.networks for t in n.parameters()])
+
+
+def _timed_iteration(tr, state, draws=None):
+    """(state', metrics, seconds, {kernel: launches}) of one iteration, the
+    launch counts set to 0 just before it."""
+    import time
+
+    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
+    from sigmarl_tpu_torch.ops.qp import newton_solve
+
+    newton_solve.launches = pseudo_distance_stencil.launches = 0
+    tr._sync()
+    t0 = time.perf_counter()
+    state, m = tr.train_iteration(state, draws)
+    tr._sync()
+    launches = {"qp_newton": newton_solve.launches,
+                "boundary_stencil": pseudo_distance_stencil.launches}
+    return state, m, time.perf_counter() - t0, launches
+
+
+def unsharded_iteration(kw: dict, seed: int, dev: str = "cuda") -> dict:
+    """The reference of `sharded_iteration_rank`: one process over all B
+    envs, the draws drawn once on the card from `seed` (the start's reset
+    and one iteration), then a second iteration from the trainer's own
+    generator, timed. Returns the draws (on the CPU), the first iteration's
+    state, obs, metrics and parameters, and both iterations' seconds and
+    launches."""
+    from sigmarl_tpu_torch import MAPPOCAVs, Parameters
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.env.structs import state_to
+
+    tr = MAPPOCAVs(Parameters(**kw, device=dev))
+    gen = torch.Generator(device=tr.device).manual_seed(seed)
+    start = ResetDraws.sample(tr.env.cfg, gen, tr.device)
+    draws = iteration_draws(tr, gen)
+    state, m, sec, launches = _timed_iteration(tr, tr.initial_state(reset_draws=start), draws)
+    out = dict(start=start.to("cpu"), draws=draws.to("cpu"),
+               env_state=state_to(state.env_state, "cpu"), obs=state.obs.cpu(),
+               metrics={k: float(v) for k, v in m.items()}, params=_flat_parameters(state).cpu(),
+               seconds=[sec], launches=[launches], lr=tr.parameters.lr,
+               updates=tr.updates_per_iter, counts=tr.challenge_counts().cpu())
+    _, _, sec, launches = _timed_iteration(tr, state)
+    out["seconds"].append(sec)
+    out["launches"].append(launches)
+    return out
+
+
+def sharded_iteration_rank(shard, device, kw: dict, start, draws) -> dict:
+    """One rank of the sharded counterpart of `unsharded_iteration` (a
+    function for `parallel.dryrun.spawn_ranks`): the same start and draws,
+    sliced to the rank's envs; the gathered state and obs, the reduced
+    metrics, the rank's parameters, and each iteration's seconds and the
+    rank's launches."""
+    from sigmarl_tpu_torch import MAPPOCAVs, Parameters
+    from sigmarl_tpu_torch.env.structs import state_to
+    from sigmarl_tpu_torch.parallel.mesh import gather_world_state
+
+    tr = MAPPOCAVs(Parameters(**kw, device=str(device)), shard=shard)
+    state = tr.initial_state(reset_draws=start.to(device))
+    state, m, sec, launches = _timed_iteration(tr, state, draws.to(device))
+    out = dict(env_state=state_to(gather_world_state(state.env_state, shard), "cpu"),
+               obs=shard.all_gather(state.obs).cpu(),
+               metrics={k: float(v) for k, v in m.items()}, params=_flat_parameters(state).cpu(),
+               seconds=[sec], launches=[launches], counts=tr.challenge_counts().cpu())
+    _, _, sec, launches = _timed_iteration(tr, state)
+    out["seconds"].append(sec)
+    out["launches"].append(launches)
+    return out
+
+
+def policy_rows_invariant(policy, obs: torch.Tensor, rows: int) -> float:
+    """Largest difference between the policy's outputs on the first `rows`
+    envs alone and on all envs: 0 where the layers round alike at both
+    batch sizes."""
+    with torch.no_grad():
+        loc_all, scale_all = policy(obs)
+        loc, scale = policy(obs[:rows])
+    return float(torch.maximum((loc_all[:rows] - loc).abs().max(),
+                               (scale_all[:rows] - scale).abs().max()))
+
+
+def sharded_vs_unsharded(ref: dict, ranks: List[dict], what: str) -> List[Check]:
+    """The checks of a sharded iteration against the unsharded one:
+
+    - the gathered rollout: integer fields and flags equal, the challenge
+      buffer's records equal, float fields (obs included) within 1e-3
+      (u* within 1e-2), and whether every field is bit for bit (reported
+      as a check whose limit is 0, counted ok either way: a policy layer
+      that rounds differently at another row count parts it);
+    - the parameters: at least 99 % within 1e-6 of the unsharded ones and
+      all within 2 lr per update; every rank's equal to rank 0's;
+    - the metrics: `n_done` equal, the rest to a relative 1e-4;
+    - launches: K1 and K2 once per rollout step on every rank."""
+    checks = []
+    r0 = ranks[0]
+    worst, exact = 0.0, True
+    for f in dataclasses.fields(ref["env_state"]):
+        a, b = getattr(r0["env_state"], f.name), getattr(ref["env_state"], f.name)
+        exact &= bool(torch.equal(a, b))
+        if a.is_floating_point():
+            d = float((a - b).abs().max()) if a.numel() else 0.0
+            lim = 1e-2 if f.name == "cbf_u_prev" else 1e-3
+            if f.name == "challenge_buffer":
+                lim = 0.0
+            checks.append(Check(f"{what}: {f.name} max |sharded - unsharded|", d, lim, d <= lim))
+            worst = max(worst, d)
+        else:
+            checks.append(Check(f"{what}: {f.name} entries that differ",
+                                float((a != b).sum()), 0.0, bool(torch.equal(a, b))))
+    d = float((r0["obs"] - ref["obs"]).abs().max())
+    exact &= d == 0.0
+    checks.append(Check(f"{what}: obs max |sharded - unsharded|", d, 1e-3, d <= 1e-3))
+    checks.append(Check(f"{what}: rollout bit for bit (0 = yes; largest state difference)",
+                        max(worst, d), 0.0, True))
+    diffs = (r0["params"] - ref["params"]).abs()
+    share = float((diffs <= 1e-6).float().mean())
+    checks.append(Check(f"{what}: share of parameters within 1e-6", share, 0.99, share >= 0.99))
+    lim = 2 * ref["lr"] * ref["updates"]
+    checks.append(Check(f"{what}: max parameter difference", float(diffs.max()), lim,
+                        float(diffs.max()) <= lim))
+    for r in ranks[1:]:
+        checks.append(Check(f"{what}: ranks' parameters differ (max)",
+                            float((r["params"] - r0["params"]).abs().max()), 0.0,
+                            bool(torch.equal(r["params"], r0["params"]))))
+    m, mr = r0["metrics"], ref["metrics"]
+    checks.append(Check(f"{what}: n_done", m["n_done"], mr["n_done"], m["n_done"] == mr["n_done"]))
+    for k in ("episode_reward_mean", "reward_mean", "cbf_solved_share", "loss_objective",
+              "loss_critic", "loss_entropy"):
+        both_nan = math.isnan(m[k]) and math.isnan(mr[k])  # no episode ended
+        gap = 0.0 if both_nan else abs(m[k] - mr[k]) / max(abs(mr[k]), 1e-12)
+        checks.append(Check(f"{what}: {k} relative gap", gap, 1e-4, gap <= 1e-4))
+    checks.append(Check(f"{what}: challenge (records, replays) differ",
+                        float((r0["counts"] - ref["counts"]).abs().sum()), 0.0,
+                        bool(torch.equal(r0["counts"], ref["counts"]))))
+    T = len(ref["draws"].reset_draws)
+    for rank, r in enumerate(ranks):
+        for it, launches in enumerate(r["launches"]):
+            for k, n in launches.items():
+                checks.append(Check(f"{what}: rank {rank} iteration {it + 1} {k} launches",
+                                    n, T, n == T))
+    return checks

@@ -664,3 +664,32 @@ def test_challenge_buffer_record_and_replay_on_the_card_match_the_cpu():
         pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
     checks = challenge_buffer_steps_card_vs_cpu("cuda")
     assert all(c.ok for c in checks), [c for c in checks if not c.ok]
+
+
+def test_one_rank_nccl_iteration_matches_the_unsharded_one():
+    """The CBF-filtered iteration with the challenge buffer on (cpm_entire,
+    N=15, B=64, T=8) on a 1-rank nccl group (`parallel/mesh.py`) against the
+    same iteration in this process from the same start and draws, drawn
+    once on the card: the checks of
+    `utils/card_checks.py::sharded_vs_unsharded` (integer fields and flags
+    equal, floats within 1e-3, the parameter rule, K1 and K2 once per
+    rollout step), as `chip_smoke.py` holds them at full width."""
+    from sigmarl_tpu_torch.parallel.dryrun import spawn_ranks
+    from sigmarl_tpu_torch.utils.card_checks import (
+        sharded_iteration_rank,
+        sharded_vs_unsharded,
+        unsharded_iteration,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    kw = dict(scenario_type="cpm_entire", n_agents=15, num_vmas_envs=64, dt=0.1, max_steps=8,
+              num_epochs=1, minibatch_size=256, is_use_mtv_distance=False, is_obs_noise=False,
+              rew_method="cbf", is_using_cbf_training=True, is_solve_qp=True,
+              is_apply_cbf_action=True, is_using_centralized_cbf=True,
+              is_challenging_initial_state_buffer=True, where_to_save="unused/")
+    ref = unsharded_iteration(kw, seed=3)
+    ranks = spawn_ranks(sharded_iteration_rank, 1, kw, ref["start"], ref["draws"],
+                        backend="nccl", device="cuda:0")
+    bad = [c for c in sharded_vs_unsharded(ref, ranks, "1-rank nccl") if not c.ok]
+    assert not bad, bad
