@@ -22,10 +22,21 @@ Phases, in order; any failure exits non-zero before the result line:
 5. 16 timed filtered steps with the launch counts set to 0 just before
    and read just after: K1 must launch once per step and K2 once per step
    (one launch serves both boundary sides); obs, rewards and u* must be
-   finite. Prints env-steps/s beside the card's name and power limit;
+   finite. Prints env-steps/s beside the card's name and power limit, and
+   the steps that ran the reset, compacted (at most 3B/8 = 384 envs
+   reset: only those are spawned) and at full width: at least one
+   compacted step in the timed window; one env step syncs the host once
+   (PyTorch's sync debug mode counts the waits);
 6. a small-input check at B=8: the card's constraint assembly, solve and
    environment step against the CPU path (the kernels' plain versions)
    from the same state with the same draws;
+6a. the reset on the main path's env and state with one seeded mask of
+   about 23 % of the envs: the compacted spawn against full width (whose
+   draws carry the compacted rows in the resetting envs' rows) bit for
+   bit, and both timed (medians of 7 windows, queued and back to back);
+   then steps at B=1024 (N=4) with the spawn compacted and at full width
+   on the card against the CPU (`utils/card_checks.py`, shared with the
+   card test);
 7. grouped filtering (`scripts/bench_grouped.py`'s setup: groups of at most
    4, Kp = 18 pair rows): K1 against its plain version on a grouped input
    with the tolerances of phase 4, 16 timed steps with one launch of each
@@ -41,7 +52,8 @@ Phases, in order; any failure exits non-zero before the result line:
    one decentralized at N=4, B=32: K1 and K2 launched 16 times each, the
    solved share, finite obs, rewards and losses; K1 against its plain
    version and timed on the centralized input at 2+15; the centralized
-   run's weights saved as a reward-keyed checkpoint for phase 14;
+   run's weights saved as a reward-keyed checkpoint for phase 14; the
+   reset steps, compacted and at full width;
 10. one PPO minibatch update on the card against the CPU at a small size
     (loss, gradients, updated parameters);
 11. XP-MARL as the ICRA'25 priority comparison runs it (cpm_mixed, N=4,
@@ -57,7 +69,8 @@ Phases, in order; any failure exits non-zero before the result line:
     T=16, learned priority with communication noise, the centralized
     filter at its 2+15 budget, one epoch of minibatch 4096: K1 and K2
     launched 16 times each, 15 policy calls per step, the solved share,
-    finite obs, rewards and losses;
+    finite obs, rewards and losses, the reset steps (compacted and full
+    width);
 13. card against CPU at a small size, the same weights and draws: one
     XP-MARL propagation step (N=4, B=8; actions to atol 1e-5) and one env
     step with the MTV distance, observation noise and a history of 2 (the
@@ -72,7 +85,8 @@ Phases, in order; any failure exits non-zero before the result line:
     back), 2 iterations: K1 and K2 once per rollout step, solved share 1.0,
     finite losses, the records and replays of each iteration, a record in
     the buffer and a replay by the end (else the plain MAPPO iteration at
-    the same width carries that check, and the phase says so); then its
+    the same width carries that check, and the phase says so), and no
+    compacted reset step (the buffer's replay works at full width); then its
     record and replay steps on the card against the CPU (N=4, B=8;
     `utils/card_checks.py`, shared with the card test);
 15. CBF evaluation (`main_eval`'s function at its defaults: cpm_mixed,
@@ -86,8 +100,9 @@ Phases, in order; any failure exits non-zero before the result line:
     m/s) for 1 to 5 circles, 32 steps each: K1 at P = 0 and K2 once per
     step, the checks of phase 15 on the record the driver wrote;
 17. CLF-filtered testing at the main path's width (N=15, B=1024, 3+5, 16
-    steps), and AT25 (`eval/at25.py::run_model`, scripted, N=15, B=1,
-    256 steps from `default_poses`): the event counts;
+    steps; the reset steps, compacted and at full width), and AT25
+    (`eval/at25.py::run_model`, scripted, N=15, B=1, 256 steps from
+    `default_poses`): the event counts;
 17a. the standalone CBF studies: the ECC'25 MTV predictor trained 3 epochs
     on the card and on the CPU from the same weights and permutations; the
     ECC'25 grid (`eval/papers.py::ecc25_cbf_grid`, figures off: 60-epoch
@@ -112,7 +127,9 @@ Phases, in order; any failure exits non-zero before the result line:
     sharded_vs_unsharded`: the rollout bit for bit or within 1e-3 with
     integer fields and flags equal, the parameter rule, K1 and K2 once
     per rollout step on every rank, counts set to 0 before each
-    iteration); a second iteration from the generators timed in each;
+    iteration, every rank's reset steps those of this process, none
+    compacted with the buffer on); a second iteration from the
+    generators timed in each;
 18b. the host tools on the card against the CPU: the dense QP oracle on
     `to_dense` of a filtered step's set, `pseudo_distance_to_polyline`,
     `current_lanelet_id`; an `InteractiveSession` and `debug_demo`
@@ -232,6 +249,32 @@ def cuda_ms_windows(fn, reps: int, windows: int = 7, queued: bool = False) -> di
     calls each (milliseconds per call)."""
     times = sorted(cuda_ms(fn, reps, queued=queued) for _ in range(windows))
     return dict(ms=times[len(times) // 2], ms_min=times[0], ms_max=times[-1])
+
+
+def host_syncs(fn) -> list:
+    """The host syncs while `fn` runs, as "file:line" of the code that
+    waited: the warnings of PyTorch's sync debug mode, one per operation
+    that waits for the card (a read of a value, a copy from pageable host
+    memory)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    # The first switch of the mode in a process waits once itself.
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
 
 
 def rel_gap(a, b):
@@ -561,6 +604,64 @@ def print_k1_timing(what: str, r: dict, smi: str) -> None:
           f"{r['blocks_per_sm']} blocks per SM, {r['waves']:.2f} waves; on {smi}")
 
 
+# The reset's timing: the share of envs that reset in one step of the
+# main path (the JAX package's measure, `scripts/measure_resets.py`), and
+# calls per CUDA-event window.
+RESET_SHARE, RESET_REPS = 0.23, 5
+
+
+def reset_timing_phase(env, state, smi) -> None:
+    """`apply_reset` on the main path's env and live state (cpm_entire,
+    N=15, B=1024) with one seeded mask of about 23 % of the envs (whole
+    envs, as the main path resets them): the compacted spawn against full
+    width, medians of 7 CUDA-event windows of 5 calls, queued behind a
+    spin (the card's time) and back to back (as the host issues them).
+    The full-width draws carry the compacted rows in the resetting envs'
+    rows, so both give the same state: checked bit for bit."""
+    import torch
+
+    from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, compact_slots
+
+    dev = env.device
+    g = torch.Generator(device=dev).manual_seed(23)
+    env_any = torch.rand((BATCH,), generator=g, device=dev) < RESET_SHARE
+    mask = env_any[:, None].expand(BATCH, N_AGENTS).contiguous()
+    k = int(env_any.sum())
+    slots = compact_slots(BATCH, False)
+    check(0 < k <= slots, f"{k} resetting envs for {slots} slots")
+    draws = ResetDraws.sample(env.cfg, g, dev, compact_slots=slots)
+    rows = env_any.nonzero()[:, 0]
+    draws.path_u[rows] = draws.path_u_c[:k]
+    draws.point_u[rows] = draws.point_u_c[:k]
+    fns = {"compacted": lambda: apply_reset(env.cfg, env.tables, state, mask, draws,
+                                            compact=(0, k)),
+           "full width": lambda: apply_reset(env.cfg, env.tables, state, mask, draws)}
+    a, b = fns["compacted"](), fns["full width"]()
+    differ = [f for f in a.__dataclass_fields__ if not torch.equal(getattr(a, f), getattr(b, f))]
+    check(not differ, f"the compacted reset differs from full width in {differ}")
+    for name, fn in fns.items():
+        q = cuda_ms_windows(fn, RESET_REPS, queued=True)
+        bb = cuda_ms_windows(fn, RESET_REPS)
+        print(f"reset ({name}, {k} of {BATCH} envs, N={N_AGENTS}): {q['ms']:.4f} ms queued "
+              f"({q['ms_min']:.4f} to {q['ms_max']:.4f}), {bb['ms']:.4f} ms back to back "
+              f"({bb['ms_min']:.4f} to {bb['ms_max']:.4f}); on {smi}")
+    print("reset: the compacted and full-width resets give the same state bit for bit")
+
+
+def compact_small_check(dev) -> None:
+    """Steps at B=1024 (cpm_entire, N=4) with the spawn compacted and at
+    full width on the card against the CPU from the same state and draws,
+    to the tolerances of `utils/card_checks.py::compact_reset_card_vs_cpu`
+    (which the card test shares)."""
+    from sigmarl_tpu_torch.utils.card_checks import compact_reset_card_vs_cpu
+
+    checks = compact_reset_card_vs_cpu(dev)
+    print("compacted reset steps (N=4, B=1024), card vs CPU: " + "; ".join(
+        f"{c.what} {c.value:.3g} (<= {c.limit:g})" for c in checks))
+    for c in checks:
+        check(c.ok, f"card vs CPU: {c.what} {c.value} above {c.limit}")
+
+
 def grouped_phase(env, policy, gen, smi) -> dict:
     """Grouped filtering as `scripts/bench_grouped.py` sets it up (cpm_entire,
     N=15, B=1024, groups of at most 4, 3+5 budget): K1 against its plain
@@ -708,7 +809,9 @@ def filtered_training_phase(dev, smi, workdir) -> dict:
         solved = float(m["cbf_solved_share"])
         print_iteration(f"CBF-filtered training ({name}, N={p.n_agents}, B={p.num_vmas_envs})", 0,
                         m, p.frames_per_batch, smi)
-        print(f"CBF-filtered training ({name}): launches {launches}, solved share {solved:.6f}")
+        resets = reset_branches(tr.env)
+        print(f"CBF-filtered training ({name}): launches {launches}, solved share {solved:.6f}, "
+              f"reset steps {fmt_branches(resets, p.max_steps)}")
         check(_finite_losses(m) and bool(torch.isfinite(state.obs).all()),
               f"non-finite obs, reward or loss in {name} filtered training")
         check(math.isfinite(solved), f"no solved share in {name} filtered training")
@@ -784,9 +887,13 @@ def challenge_buffer_phase(dev, smi, workdir) -> dict:
             iters.append(dict(launches=launches, records=records, replays=replays,
                               seconds=m["seconds_rollout"] + m["seconds_gae"] + m["seconds_update"],
                               rollout_frames_per_s=p.frames_per_batch / r))
+            resets = reset_branches(tr.env)
             print(f"{what} iteration {i + 1}: launches {launches}, {records} states recorded, "
                   f"{replays} env resets replayed a record, cb_valid "
-                  f"{int(state.env_state.cb_valid)}")
+                  f"{int(state.env_state.cb_valid)}, reset steps so far "
+                  f"{fmt_branches(resets, (i + 1) * p.max_steps)}")
+            check(resets[1] == 0,
+                  f"{what}: a compacted reset step with the challenge buffer on")
         return iters, int(state.env_state.cb_valid)
 
     out = {}
@@ -979,7 +1086,8 @@ def wide_xpmarl_phase(dev, smi, workdir) -> dict:
     solved = float(m["cbf_solved_share"])
     print(f"wide XP-MARL, CBF-filtered: launches {launches}, solved share {solved:.6f}, "
           f"{calls} rollout policy calls in {p.max_steps} steps, priority loss "
-          f"{float(m['loss_priority']):.5f}")
+          f"{float(m['loss_priority']):.5f}, reset steps "
+          f"{fmt_branches(reset_branches(tr.env), p.max_steps)}")
     check(math.isfinite(solved), "no solved share in the wide XP-MARL iteration")
     check(calls == p.n_agents * p.max_steps, f"{calls} policy calls, want {p.n_agents} per step")
     for k, n in launches.items():
@@ -1073,6 +1181,22 @@ def zero_launch_counts() -> None:
     torch.cuda.synchronize()
     newton_solve.launches = 0
     pseudo_distance_stencil.launches = 0
+
+
+def reset_branches(env) -> tuple:
+    """The env's reset-step counts: (steps that ran the reset, of those
+    the compacted ones, the full-width ones)."""
+    from sigmarl_tpu_torch.utils.card_checks import reset_counts
+
+    return reset_counts(env)
+
+
+def zero_reset_branches(env) -> None:
+    env.reset_steps = env.compact_reset_steps = env.full_reset_steps = 0
+
+
+def fmt_branches(counts: tuple, steps: int) -> str:
+    return f"{counts[0]} reset ({counts[1]} compacted, {counts[2]} full width) in {steps}"
 
 
 def check_record(record: dict, what: str) -> None:
@@ -1169,7 +1293,8 @@ def check_eval_run(result: dict, record: dict, env, launches: dict, steps: int, 
     print(f"{what}: {steps} steps, {result['timing_steps_per_s']:.1f} env-steps/s, launches "
           f"{launches}, solved share {solved:.6f}, QP infeasibility rate "
           f"{result['qp_infeasibility_rate']:.4f}, the reset ran in {env.reset_steps} steps "
-          f"({share:.3f}), {single_agent_resets(record)} single-agent resets; on {smi}")
+          f"({share:.3f}; {env.compact_reset_steps} compacted, {env.full_reset_steps} full "
+          f"width), {single_agent_resets(record)} single-agent resets; on {smi}")
     return dict(launches=launches, steps_per_s=result["timing_steps_per_s"], reset_share=share,
                 solved_share=solved, qp_infeasibility_rate=result["qp_infeasibility_rate"])
 
@@ -1566,7 +1691,10 @@ def sharded_phase(smi: str) -> dict:
     out = {"unsharded": dict(seconds=ref["seconds"], launches=ref["launches"])}
     print(f"sharded phase, unsharded reference (N=15, B=1024): iterations "
           f"{ref['seconds'][0]:.3f} / {ref['seconds'][1]:.3f} s, launches {ref['launches']}, "
-          f"(records, replays) {ref['counts'].tolist()}; on {smi}")
+          f"(records, replays) {ref['counts'].tolist()}, (reset, compacted, full-width) steps "
+          f"after each iteration {ref['resets']}; on {smi}")
+    check(all(r[1] == 0 for r in ref["resets"]),
+          f"a compacted reset step with the challenge buffer on ({ref['resets']})")
     tr = MAPPOCAVs(Parameters(**SHARDED_TRAINING, device="cuda"))
     moved = policy_rows_invariant(tr.policy_net, ref["obs"].cuda(), BATCH // 2)
     print(f"sharded phase: the policy's outputs for {BATCH // 2} envs run alone against within "
@@ -1753,6 +1881,8 @@ def main() -> int:
     qp_args, qp_static, pd_args = capture_kernel_inputs(env, cbf, policy, gen, state, obs)
     errs = check_kernels(qp_args, qp_static, pd_args)
 
+    warm_resets = reset_branches(env)
+    zero_reset_branches(env)
     newton_solve.launches = 0
     pseudo_distance_stencil.launches = 0
     torch.cuda.synchronize()
@@ -1762,7 +1892,16 @@ def main() -> int:
     elapsed = time.perf_counter() - t0
     launches = {"qp_newton": newton_solve.launches,
                 "boundary_stencil": pseudo_distance_stencil.launches}
+    main_resets = reset_branches(env)
     print(f"main path: {TIMED_STEPS} steps, launches {launches}, solved share {solved:.6f}")
+    print(f"main path reset steps: {fmt_branches(main_resets, TIMED_STEPS)} of the timed "
+          f"steps; warm-up {fmt_branches(warm_resets, WARMUP_STEPS)}")
+    check(main_resets[1] > 0, f"no compacted reset step on the main path ({main_resets})")
+    act = policy_actions(env, policy, obs, gen)
+    syncs = host_syncs(lambda: env.step(state, act, generator=gen))
+    print(f"main path: {len(syncs)} host sync in one env step, at {syncs} (the number of "
+          "resetting envs)")
+    check(len(syncs) == 1, f"{len(syncs)} host syncs in one env step, at {syncs}; want 1")
     check(finite, "non-finite obs, reward or u* on the main path")
     check(obs.shape == (BATCH, N_AGENTS, env.obs_dim), f"obs shape {tuple(obs.shape)}")
     for k, n in launches.items():
@@ -1771,6 +1910,8 @@ def main() -> int:
           f"({elapsed / TIMED_STEPS * 1e3:.2f} ms/step) on {smi}")
 
     small_input_check(dev)
+    reset_timing_phase(env, state, smi)
+    compact_small_check(dev)
 
     grouped = grouped_phase(env, policy, gen, smi)
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from sigmarl_tpu_torch.device import constant
+
 Tensor = torch.Tensor
 
 
@@ -44,10 +46,10 @@ def rectangle_vertices(
     """Rectangle vertices for batched poses. center [..., 2], yaw [...];
     returns [..., 4 or 5, 2] (first vertex repeated when `close_shape`)."""
     lh, wh = length / 2, width / 2
-    base = [[lh, wh], [lh, -wh], [-lh, -wh], [-lh, wh]]
+    base = ((lh, wh), (lh, -wh), (-lh, -wh), (-lh, wh))
     if close_shape:
         base = base + base[:1]
-    base = torch.tensor(base, dtype=center.dtype, device=center.device)
+    base = constant(base, center.dtype, center.device)
     cos_y, sin_y = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
     vx = base[:, 0] * cos_y - base[:, 1] * sin_y
     vy = base[:, 0] * sin_y + base[:, 1] * cos_y

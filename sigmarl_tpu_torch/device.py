@@ -1,6 +1,9 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and the small
+constant tensors that per-step code reads on a device."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,3 +22,13 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         )
     # With its index, so that it compares equal to a tensor's device.
     return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=64)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`torch.tensor(values)` on `device`, made once per (values, dtype,
+    device) and shared by every caller, which must not write to it. Code
+    that runs every step takes its constants from here: a tensor made anew
+    from host values is a copy from pageable host memory, and such a copy
+    waits until the card has run everything queued before it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -11,7 +11,8 @@ struct-of-tensors state `[B, N, ...]`, with auto-reset folded in:
 5. done logic (in testing mode an agent that collides or reaches its
    entry or exit is reset alone); with the challenging initial-state
    buffer on, the record of envs with an agent-agent collision; masked
-   auto-reset
+   auto-reset, its spawn compacted to the resetting envs where at least
+   1024 envs run and at most 3/8 of them reset
 6. observation of the post-reset state
 
 `reset_predefined` and `reset_from_poses` start every env from given
@@ -30,10 +31,10 @@ import torch
 from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.core.dynamics import BicycleParams, command_step
-from sigmarl_tpu_torch.device import resolve_device
+from sigmarl_tpu_torch.device import constant, resolve_device
 from sigmarl_tpu_torch.env.map_tables import MapTables, build_map_tables
 from sigmarl_tpu_torch.env.observations import observe_with_history
-from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, initial_state
+from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, compact_slots, initial_state
 from sigmarl_tpu_torch.env.rewards import compute_rewards
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state, zero_state
 from sigmarl_tpu_torch.env.updates import (
@@ -64,11 +65,17 @@ class RoadTrafficEnv:
         S = cfg.n_points_short_term
         w = np.linspace(1.0, 0.2, S, dtype=np.float32)
         self.weighting_ref = torch.as_tensor(w / w.sum(), device=device)
-        # Steps in which the masked reset ran (counted on the host).
-        self.reset_steps = 0
+        # Steps in which the masked reset ran, and of those the steps whose
+        # spawn was compacted and those at full width (counted on the host).
+        self.reset_steps = self.compact_reset_steps = self.full_reset_steps = 0
         # With the challenge buffer on: states recorded and full-env resets
         # that replayed a record, accumulated on the device (no host sync).
         self.challenge_counts = torch.zeros(2, dtype=torch.int64, device=device)
+
+    @property
+    def global_batch(self) -> int:
+        """Envs of the whole batch: every rank's when sharded."""
+        return self.cfg.batch_dim * (1 if self.shard is None else self.shard.world)
 
     @property
     def obs_dim(self) -> int:
@@ -85,7 +92,7 @@ class RoadTrafficEnv:
     @property
     def action_limits(self) -> Tensor:
         """Per-dimension action bounds [2]: (max_speed, max_steering)."""
-        return torch.tensor([self.cfg.max_speed, self.cfg.max_steering], device=self.device)
+        return constant((self.cfg.max_speed, self.cfg.max_steering), torch.float32, self.device)
 
     def reset(
         self,
@@ -115,7 +122,9 @@ class RoadTrafficEnv:
         """Advance one control period. actions [B, N, 2] (speed target,
         steering target). The reset's random numbers come from
         `reset_draws` or else from `generator`, and are drawn only when an
-        env resets; the observation noise's uniforms [B, N, obs_dim] from
+        env resets, in the shape of the spawn the step takes (compacted or
+        full width; given draws that lack that spawn's uniforms raise a
+        ValueError); the observation noise's uniforms [B, N, obs_dim] from
         `obs_noise` or else from `generator`. With the challenge buffer on,
         the record's uniform is `reset_draws.record_u` or else drawn from
         `generator` every step. Returns (state', obs [B,N,obs_dim], reward
@@ -170,19 +179,34 @@ class RoadTrafficEnv:
                 record_u = torch.rand((), generator=generator, device=self.device)
             state, n_recorded = record_challenging_states(cfg, state, record_u, self.shard)
             self.challenge_counts[0] += n_recorded
-        # The host reads whether any env resets (one device sync per step)
-        # and runs the masked full-width reset only then; over every rank's
-        # envs when sharded, as the reset also pushes every env's state
-        # buffer once more.
-        any_reset = reset_mask.any()
-        if self.shard is not None:
-            any_reset = self.shard.all_reduce_max(any_reset.to(torch.int32))
-        if bool(any_reset):
+        # The host reads how many envs reset (one device sync per step) and
+        # runs the reset only if any does: compacted where they fit the
+        # slots, else at full width. Sharded, the count is over every
+        # rank's envs (the reset also pushes every env's state buffer once
+        # more), and this rank's envs take the compacted draws' rows after
+        # the lower ranks' resetting envs.
+        n_reset = reset_mask.any(-1).sum().reshape(1)
+        if self.shard is None:
+            counts = [int(n_reset)]
+        else:
+            counts = self.shard.all_gather(n_reset).tolist()
+        n_total = sum(counts)
+        if n_total > 0:
             self.reset_steps += 1
+            slots = compact_slots(self.global_batch, cfg.is_challenging_initial_state_buffer)
+            compact = None
+            if n_total <= slots:
+                rank = 0 if self.shard is None else self.shard.rank
+                compact = (sum(counts[:rank]), counts[rank])
+                self.compact_reset_steps += 1
+            else:
+                self.full_reset_steps += 1
             if reset_draws is None:
-                reset_draws = ResetDraws.sample(cfg, generator, self.device, state.cb_valid)
+                reset_draws = ResetDraws.sample(
+                    cfg, generator, self.device, state.cb_valid,
+                    compact_slots=slots if compact else 0, full=compact is None)
             state = apply_reset(cfg, tables, state, reset_mask, reset_draws,
-                                replay_count=self.challenge_counts[1:])
+                                replay_count=self.challenge_counts[1:], compact=compact)
         # 6. observation of the (possibly reset) state; the history slots of
         # the agents just reset are refilled with the new episode's features.
         obs, state = observe_with_history(

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from sigmarl_tpu_torch.core import geometry as G
+from sigmarl_tpu_torch.device import constant
 from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state
 
@@ -93,7 +94,7 @@ def observe_core(cfg: EnvConfig, tables: MapTables, state: WorldState) -> Tensor
             self_lb = G.global_to_local(pos, state.nearing_left, rot) / cfg.norm_pos
             self_rb = G.global_to_local(pos, state.nearing_right, rot) / cfg.norm_pos
     else:
-        norm_pos_world = torch.tensor([cfg.world_x_dim, cfg.world_y_dim], device=pos.device)
+        norm_pos_world = constant((cfg.world_x_dim, cfg.world_y_dim), torch.float32, pos.device)
         pos_feat = pos_j / norm_pos_world
         rot_feat = G.angle_eliminate_two_pi(rot_j) / cfg.norm_rot
         vel_feat = gather(vel) / cfg.norm_v
@@ -145,7 +146,7 @@ def observe_core(cfg: EnvConfig, tables: MapTables, state: WorldState) -> Tensor
     # --- self observation
     self_feats = []
     if not cfg.is_ego_view:
-        norm_pos_world = torch.tensor([cfg.world_x_dim, cfg.world_y_dim], device=pos.device)
+        norm_pos_world = constant((cfg.world_x_dim, cfg.world_y_dim), torch.float32, pos.device)
         self_feats.append(pos / norm_pos_world)
         self_feats.append((G.angle_eliminate_two_pi(rot) / cfg.norm_rot)[..., None])
         self_feats.append(vel / cfg.norm_v)

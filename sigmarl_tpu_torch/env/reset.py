@@ -4,7 +4,12 @@ Each respawning agent draws a fixed budget of `max_spawn_tries` candidate
 (path, point) poses at once and takes the first one far enough from the
 agents already placed (the last candidate when none is). Agents are placed
 in order, vectorized over envs. The reset runs at full width over all envs
-(masked).
+(masked), except for the spawn at a global batch of at least 1024 envs
+with the challenge buffer off: when no more than 3B/8 envs reset, only
+those envs' rows are gathered, spawned and scattered back (the JAX
+package's static-size compaction). Their candidates come from the first
+rows of [3B/8, N, T] draws, the s-th resetting env (in env order) taking
+row s, so that both packages spawn alike from the same draws.
 
 With the challenging initial-state buffer on, a full-env reset replays a
 recorded state instead, with probability `probability_use_recording`, and
@@ -17,10 +22,11 @@ can feed it the JAX package's draws; `ResetDraws.sample` draws them from a
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
+from sigmarl_tpu_torch.device import constant
 from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state, zero_state
 from sigmarl_tpu_torch.env.updates import (
@@ -39,7 +45,8 @@ class ResetDraws:
 
     scenario_gumbel: [B, 3] Gumbel noise of the per-env scenario-group draw
         (cpm_mixed only; None elsewhere).
-    path_u: [B, N, T] uniforms choosing each candidate's path.
+    path_u: [B, N, T] uniforms choosing each candidate's path (full-width
+        spawn; None where only the compacted spawn was drawn).
     point_u: [B, N, T] uniforms choosing each candidate's spawn point.
     speed_u: [B, N] uniforms scaling the spawn speed.
 
@@ -50,23 +57,34 @@ class ResetDraws:
         package's `randint` draws for every count so).
     record_u: [] the step's uniform compared with `probability_record`
         (drawn every step, reset or not; `RoadTrafficEnv.step` reads it).
+
+    The compacted spawn's (None where it was not drawn):
+    path_u_c, point_u_c: [S, N, T], S = 3B/8 of the global batch; row s
+        serves the s-th resetting env of the whole batch, on every rank
+        (`for_envs` leaves them whole).
     """
 
     scenario_gumbel: Tensor | None
-    path_u: Tensor
-    point_u: Tensor
+    path_u: Tensor | None
+    point_u: Tensor | None
     speed_u: Tensor
     use_u: Tensor | None = None
     pick: Tensor | None = None
     record_u: Tensor | None = None
+    path_u_c: Tensor | None = None
+    point_u_c: Tensor | None = None
 
     @classmethod
     def sample(
-        cls, cfg: EnvConfig, generator: torch.Generator, device, cb_valid: Tensor | None = None
+        cls, cfg: EnvConfig, generator: torch.Generator, device, cb_valid: Tensor | None = None,
+        compact_slots: int = 0, full: bool = True,
     ) -> "ResetDraws":
-        """Draw a reset's random numbers; `cb_valid` (the state's count of
-        valid records, on the device) bounds the replay pick, which is
-        drawn as floor(u * max(cb_valid, 1)) without a host sync."""
+        """Draw a reset's random numbers: the full-width spawn's uniforms
+        when `full`, the compacted spawn's [compact_slots, N, T] when
+        `compact_slots` > 0 (a caller that draws before it knows the
+        branch asks for both). `cb_valid` (the state's count of valid
+        records, on the device) bounds the replay pick, which is drawn as
+        floor(u * max(cb_valid, 1)) without a host sync."""
         B, N, T = cfg.batch_dim, cfg.n_agents, cfg.max_spawn_tries
 
         def u(*shape):
@@ -75,7 +93,9 @@ class ResetDraws:
         gumbel = None
         if cfg.scenario_type == "cpm_mixed":
             gumbel = -torch.log(-torch.log(u(B, 3).clamp(min=1e-20)))
-        draws = cls(gumbel, u(B, N, T), u(B, N, T), u(B, N))
+        path_u, point_u = (u(B, N, T), u(B, N, T)) if full else (None, None)
+        compact = (u(compact_slots, N, T), u(compact_slots, N, T)) if compact_slots > 0 else ()
+        draws = cls(gumbel, path_u, point_u, u(B, N), None, None, None, *compact)
         if cfg.is_challenging_initial_state_buffer:
             n = torch.clamp(cb_valid if cb_valid is not None
                             else torch.zeros((), dtype=torch.int32, device=device), min=1)
@@ -85,14 +105,13 @@ class ResetDraws:
 
 
     def to(self, device) -> "ResetDraws":
-        return ResetDraws(*(None if x is None else x.to(device) for x in (
-            self.scenario_gumbel, self.path_u, self.point_u, self.speed_u, self.use_u, self.pick,
-            self.record_u)))
+        return ResetDraws(**{f.name: None if getattr(self, f.name) is None
+                             else getattr(self, f.name).to(device) for f in fields(self)})
 
     def for_envs(self, envs: slice) -> "ResetDraws":
         """The draws of the envs `envs` (a rank's share of a sharded batch):
-        the record's uniform is global, a [CB, B] pick table is cut on its
-        env axis."""
+        the record's uniform and the compacted spawn's rows are global, a
+        [CB, B] pick table is cut on its env axis."""
 
         def cut(x):
             return None if x is None else x[envs]
@@ -101,7 +120,18 @@ class ResetDraws:
         if pick is not None:
             pick = pick[envs] if pick.dim() == 1 else pick[:, envs]
         return ResetDraws(cut(self.scenario_gumbel), cut(self.path_u), cut(self.point_u),
-                          cut(self.speed_u), cut(self.use_u), pick, self.record_u)
+                          cut(self.speed_u), cut(self.use_u), pick, self.record_u,
+                          self.path_u_c, self.point_u_c)
+
+
+def compact_slots(global_batch: int, challenge_buffer: bool) -> int:
+    """Slots of the compacted spawn at `global_batch` envs: 3B/8 from 1024
+    envs up with the challenge buffer off (its replay works at full
+    width), else 0 (no compaction). A reset step with more resetting envs
+    than slots spawns at full width."""
+    if global_batch >= 1024 and not challenge_buffer:
+        return (3 * global_batch) // 8
+    return 0
 
 
 def _sample_scenario_ids(cfg: EnvConfig, draws: ResetDraws, B: int, device) -> Tensor:
@@ -109,7 +139,7 @@ def _sample_scenario_ids(cfg: EnvConfig, draws: ResetDraws, B: int, device) -> T
     the Gumbel-max trick), else 0."""
     if cfg.scenario_type != "cpm_mixed":
         return torch.zeros((B,), dtype=torch.int32, device=device)
-    probs = torch.tensor(cfg.cpm_scenario_probabilities, dtype=torch.float32, device=device)
+    probs = constant(tuple(cfg.cpm_scenario_probabilities), torch.float32, torch.device(device))
     logits = torch.log(torch.clamp(probs, min=1e-30))
     return (torch.argmax(draws.scenario_gumbel + logits, dim=-1) + 1).to(torch.int32)
 
@@ -147,23 +177,25 @@ def _candidate_point_ids(cfg: EnvConfig, point_u: Tensor, n_points: Tensor) -> T
 def spawn_positions(
     cfg: EnvConfig,
     tables: MapTables,
-    draws: ResetDraws,
+    path_u: Tensor,
+    point_u: Tensor,
     scenario_id: Tensor,
     prev_pos: Tensor,
     reset_mask: Tensor,
 ):
     """Sample feasible spawn poses for the masked agents of each env.
 
-    scenario_id [B]; prev_pos [B, N, 2] (non-reset agents keep these and
-    constrain the reset agents); reset_mask [B, N]. Returns (pos, rot,
-    path_id, point_id), each [B, N, ...].
+    path_u, point_u [B, N, T] the candidates' uniforms; scenario_id [B];
+    prev_pos [B, N, 2] (non-reset agents keep these and constrain the
+    reset agents); reset_mask [B, N]. Returns (pos, rot, path_id,
+    point_id), each [B, N, ...].
     """
     B, N = prev_pos.shape[:2]
     T = cfg.max_spawn_tries
-    cand_path = _sample_candidate_paths(tables, draws.path_u, scenario_id)  # [B, N, T]
+    cand_path = _sample_candidate_paths(tables, path_u, scenario_id)  # [B, N, T]
     cp = cand_path.long()
     n_pts = tables.n_points_long_term[cp]
-    cand_point = _candidate_point_ids(cfg, draws.point_u, n_pts)  # [B, N, T]
+    cand_point = _candidate_point_ids(cfg, point_u, n_pts)  # [B, N, T]
     cand_pos = tables.long_term[cp, cand_point.long()]  # [B, N, T, 2]
 
     placed_pos = prev_pos.clone()
@@ -192,23 +224,76 @@ def spawn_positions(
     return placed_pos, rot, path_id, point_id
 
 
+def _spawn_positions_compact(
+    cfg: EnvConfig,
+    tables: MapTables,
+    draws: ResetDraws,
+    scenario_id: Tensor,
+    prev_pos: Tensor,
+    reset_mask: Tensor,
+    first: int,
+    count: int,
+):
+    """`spawn_positions` over only the `count` envs with a reset (their
+    number, known on the host), with rows [first, first + count) of the
+    compacted draws: the resetting envs are gathered in env order, spawned
+    and scattered back. Returns what `spawn_positions` returns over all
+    envs (the envs without a reset pass `prev_pos` through, zeros
+    elsewhere)."""
+    if draws.path_u_c is None or draws.point_u_c is None:
+        raise ValueError("a compacted reset needs ResetDraws.path_u_c and .point_u_c")
+    if first + count > draws.path_u_c.shape[0]:
+        raise ValueError(f"rows [{first}, {first + count}) exceed the "
+                         f"{draws.path_u_c.shape[0]} compacted draws")
+    B, N = prev_pos.shape[:2]
+    rot = torch.zeros((B, N), dtype=prev_pos.dtype, device=prev_pos.device)
+    path_id = torch.zeros((B, N), dtype=torch.int32, device=prev_pos.device)
+    point_id = torch.zeros_like(path_id)
+    if count == 0:  # a rank without a resetting env
+        return prev_pos, rot, path_id, point_id
+    # envs[s] = the s-th resetting env, without a host sync: every other
+    # env writes to a spare slot `count`, which is dropped.
+    env_any = reset_mask.any(-1)
+    slot = torch.where(env_any, torch.cumsum(env_any, 0) - 1, count)
+    envs = torch.zeros(count + 1, dtype=torch.int64, device=prev_pos.device)
+    envs = envs.scatter(0, slot, torch.arange(B, device=prev_pos.device))[:count]
+    rows = slice(first, first + count)
+    pos_s, rot_s, path_s, point_s = spawn_positions(
+        cfg, tables, draws.path_u_c[rows], draws.point_u_c[rows], scenario_id[envs],
+        prev_pos[envs], reset_mask[envs],
+    )
+    return (prev_pos.index_copy(0, envs, pos_s), rot.index_copy(0, envs, rot_s),
+            path_id.index_copy(0, envs, path_s), point_id.index_copy(0, envs, point_s))
+
+
 def apply_reset(
     cfg: EnvConfig, tables: MapTables, state: WorldState, reset_mask: Tensor, draws: ResetDraws,
-    replay_count: Tensor | None = None,
+    replay_count: Tensor | None = None, compact: tuple[int, int] | None = None,
 ) -> WorldState:
     """(Re)spawn the masked agents and refresh all derived state. With the
     challenge buffer on, `replay_count` (a one-element int64 tensor on the
     device), when given, is raised in place by the number of envs that
-    replayed a record."""
+    replayed a record. `compact` = (first, count) spawns only the `count`
+    envs with a reset, from rows [first, first + count) of the compacted
+    draws (the JAX package's `apply_reset(..., compact_budget=)`; first is
+    the number of resetting envs on the lower ranks of a sharded batch, 0
+    in one process); the rest of the reset stays at full width."""
     B, N = state.pos.shape[:2]
     dev = state.pos.device
     full_env_reset = reset_mask.all(-1)
     new_scenario = _sample_scenario_ids(cfg, draws, B, dev)
     # Full resets draw a fresh scenario group; partial resets keep it.
     scenario_id_env = torch.where(full_env_reset, new_scenario, state.scenario_id[:, 0])
-    pos, rot, path_id, point_id = spawn_positions(
-        cfg, tables, draws, scenario_id_env, state.pos, reset_mask
-    )
+    if compact is not None:
+        pos, rot, path_id, point_id = _spawn_positions_compact(
+            cfg, tables, draws, scenario_id_env, state.pos, reset_mask, *compact
+        )
+    else:
+        if draws.path_u is None or draws.point_u is None:
+            raise ValueError("a full-width reset needs ResetDraws.path_u and .point_u")
+        pos, rot, path_id, point_id = spawn_positions(
+            cfg, tables, draws.path_u, draws.point_u, scenario_id_env, state.pos, reset_mask
+        )
     speed_new = draws.speed_u * cfg.max_speed
     vel_new = torch.stack([speed_new * torch.cos(rot), speed_new * torch.sin(rot)], dim=-1)
     if cfg.is_challenging_initial_state_buffer:

@@ -41,9 +41,12 @@ def run_model(
     n_envs: int = 1,
     seed: int = 0,
     device: str = "cuda",
+    draws=None,
 ) -> Dict:
     """One benchmark rollout from the predefined poses (a checkpoint's
-    policy, or (0.5, 0) without one)."""
+    policy, or (0.5, 0) without one). `draws` (a `StepDraws` per step)
+    gives the steps' random numbers; without them they come from a
+    generator seeded with `seed`."""
     import torch
 
     from sigmarl_tpu_torch.config import Parameters
@@ -69,7 +72,7 @@ def run_model(
     gen = torch.Generator(device=env.device).manual_seed(seed)
     poses, paths = default_poses(n_agents)
     start = env.reset_predefined(torch.from_numpy(poses), torch.from_numpy(paths), generator=gen)
-    record, timings = rollout(env, policy_fn, max_steps, gen, state=start)
+    record, timings = rollout(env, policy_fn, max_steps, gen, state=start, draws=draws)
 
     res = M.basic_metrics(record)
     coll_aa = np.asarray(record["is_collision_with_agents"], bool)

@@ -2,21 +2,25 @@
 
 The port parses the map files shipped in `maps/assets/` on every load (a
 tenth of a second for the CPM-lab XML, less for an OSM map); it keeps no
-compiled cache. "cpm*" scenarios use the CPM XML parser, every other
-scenario of `maps/scenarios.json` the OSM parser.
+compiled cache, so `load_map` is `parse_map`. "cpm*" scenarios use the CPM
+XML parser, every other scenario of `maps/scenarios.json` the OSM parser.
+`MapManager` is the object form of `load_map`.
 """
 
 from __future__ import annotations
 
 import os
 
+import torch
+
 from sigmarl_tpu_torch.constants import SCENARIOS
+from sigmarl_tpu_torch.device import resolve_device
 from sigmarl_tpu_torch.maps.data import MapData
 
 _ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 
-def load_map(scenario_type: str, lane_width: float | None = None) -> MapData:
+def parse_map(scenario_type: str, lane_width: float | None = None) -> MapData:
     """Parse a scenario's map from the file shipped with the package.
     `lane_width` overrides the scenario's own (OSM maps only, as in the
     JAX package)."""
@@ -30,3 +34,24 @@ def load_map(scenario_type: str, lane_width: float | None = None) -> MapData:
     from sigmarl_tpu_torch.maps.parse_osm import parse_osm
 
     return parse_osm(scenario_type, map_file, lane_width=lane_width)
+
+
+def load_map(scenario_type: str, lane_width: float | None = None) -> MapData:
+    """A scenario's map: `parse_map` (no cache to prefer)."""
+    return parse_map(scenario_type, lane_width=lane_width)
+
+
+class MapManager:
+    """A scenario's map (`load_map`) and the device its tables go to:
+    `device` as the port's entry points take it (`cuda` unless the caller
+    asks for another; without a card only `device="cpu"` works)."""
+
+    def __init__(self, scenario_type: str = "cpm_entire", device: str | torch.device | None = None,
+                 lane_width: float | None = None):
+        self._scenario_type = scenario_type
+        self.device = resolve_device(device)
+        self.map_data = load_map(scenario_type, lane_width=lane_width)
+
+    @property
+    def parser(self) -> MapData:
+        return self.map_data

@@ -4,8 +4,9 @@ The env batch shards over W ranks, B/W envs each, and an env never spans
 ranks. Rollouts are rank-local; the PPO update's gradient all-reduce is the
 only communication of the update. Given the same draws, W ranks compute the
 iteration that one process computes with B envs: the steps that the global
-program decides over all envs (whether any env resets; the challenge
-buffer's record, ranked over every env) take one collective each.
+program decides over all envs (how many envs reset, which decides the
+spawn's branch and each rank's compacted slots; the challenge buffer's
+record, ranked over every env) take one collective each.
 
 A `Shard` is one rank's view: its rank, the world size and the process
 group, with the collectives the trainer and the env use. The gloo backend

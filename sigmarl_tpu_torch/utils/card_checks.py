@@ -1,8 +1,9 @@
 """Checks of the port on the card that `chip_smoke.py` and the card tests
 (`tests/test_torch_gpu.py`) share: K1's inputs with near-zero CLF rows,
 one testing-mode, CLF-filtered, fp16-parity step on the card against the
-same step on the CPU, and the challenge buffer's record and replay steps
-on the card against the CPU. They need a CUDA device."""
+same step on the CPU, the challenge buffer's record and replay steps on
+the card against the CPU, and a step whose reset spawn is compacted on
+the card against the CPU. They need a CUDA device."""
 
 from __future__ import annotations
 
@@ -208,13 +209,67 @@ def challenge_buffer_steps_card_vs_cpu(dev: str = "cuda", B: int = 8) -> List[Ch
     return [c._replace(ok=c.value <= c.limit) for c in checks]
 
 
+def compact_reset_card_vs_cpu(dev: str = "cuda", B: int = 1024, N: int = 4,
+                              share: float = 0.23) -> List[Check]:
+    """Steps at B=1024 (cpm_entire, N=4) from the same state and draws on
+    the card and on the CPU, before each of which about `share` of the
+    envs collide (agent 1 put on agent 0), so that they reset and the
+    spawn is compacted (at most 3B/8 resetting envs); a third step with
+    half of the envs colliding spawns at full width. Per step: both
+    devices take the same branch (the env's counters), done flags,
+    path, point and scenario ids equal, positions and rewards to atol
+    2e-5, observations to 1e-4. Returns the checks."""
+    from sigmarl_tpu_torch import Parameters, make_env
+    from sigmarl_tpu_torch.env.reset import ResetDraws, compact_slots
+    from sigmarl_tpu_torch.env.structs import replace_state, state_to
+
+    p = Parameters(scenario_type="cpm_entire", n_agents=N, num_vmas_envs=B, dt=0.1,
+                   max_steps=1_000_000, is_use_mtv_distance=False, is_obs_noise=False)
+    env_c, env_g = make_env(p, device="cpu"), make_env(p, device=dev)
+    slots = compact_slots(B, False)
+    g = torch.Generator().manual_seed(9)
+    state, _ = env_c.reset(generator=g)
+    sg = state_to(state, torch.device(dev))
+    act = torch.zeros((B, N, 2))
+    act[..., 0] = 0.3
+    checks = []
+    for k, frac in enumerate((share, share, 0.5)):
+        hit = torch.rand((B,), generator=g) < frac
+        pos = state.pos.clone()
+        pos[hit, 1] = pos[hit, 0] + torch.tensor([0.02, 0.0])
+        state, sg = replace_state(state, pos=pos), replace_state(sg, pos=pos.to(dev))
+        draws = ResetDraws.sample(env_c.cfg, g, "cpu", compact_slots=slots)
+        before = [(e.compact_reset_steps, e.full_reset_steps) for e in (env_c, env_g)]
+        state, oc, rc, dc, _ = env_c.step(state, act, reset_draws=draws)
+        sg, og, rg, dg, _ = env_g.step(sg, act.to(dev), reset_draws=draws.to(dev))
+        branch = [(e.compact_reset_steps - c0, e.full_reset_steps - f0)
+                  for e, (c0, f0) in zip((env_c, env_g), before)]
+        want = (1, 0) if int(dc.sum()) <= slots else (0, 1)
+        ids = sum(int((getattr(sg, f).cpu() != getattr(state, f)).sum())
+                  for f in ("path_id", "point_id", "scenario_id"))
+        checks += [
+            Check(f"step {k + 1} ({int(dc.sum())} envs reset): branches differing from "
+                  f"{'compacted' if want == (1, 0) else 'full width'} ({branch})",
+                  int(branch[0] != want) + int(branch[1] != want), 0, False),
+            Check(f"step {k + 1}: done flags differing", int((dg.cpu() != dc).sum()), 0, False),
+            Check(f"step {k + 1}: path, point and scenario ids differing", ids, 0, False),
+            Check(f"step {k + 1}: position", float((sg.pos.cpu() - state.pos).abs().max()),
+                  2e-5, False),
+            Check(f"step {k + 1}: reward", float((rg.cpu() - rc).abs().max()), 2e-5, False),
+            Check(f"step {k + 1}: observation", float((og.cpu() - oc).abs().max()), 1e-4, False),
+        ]
+    checks.append(Check("compacted steps short of 2", max(0, 2 - env_g.compact_reset_steps),
+                        0, False))
+    return [c._replace(ok=c.value <= c.limit) for c in checks]
+
+
 def iteration_draws(tr, generator: torch.Generator):
     """Every random number of one plain or CBF-filtered training iteration
     of trainer `tr` (one process, all B envs; no observation noise, XP-MARL
     or opponent modeling), drawn from `generator` on its device. With the
     challenge buffer, each step's replay picks are a [CB, B] table by
     valid count."""
-    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.env.reset import ResetDraws, compact_slots
     from sigmarl_tpu_torch.rl.mappo_cavs import IterationDraws
 
     p, cfg = tr.parameters, tr.env.cfg
@@ -222,9 +277,12 @@ def iteration_draws(tr, generator: torch.Generator):
         raise ValueError("iteration_draws covers plain and filtered iterations in one process")
     T, B, N, E = p.max_steps, cfg.batch_dim, cfg.n_agents, p.num_epochs
     dev = generator.device
+    # Drawn before the branch is known: both spawns' uniforms where the
+    # env may compact.
+    slots = compact_slots(B, cfg.is_challenging_initial_state_buffer)
     resets = []
     for _ in range(T):
-        d = ResetDraws.sample(cfg, generator, dev)
+        d = ResetDraws.sample(cfg, generator, dev, compact_slots=slots)
         if cfg.is_challenging_initial_state_buffer:
             v = torch.arange(1, cfg.challenge_buffer_size + 1, device=dev)[:, None]
             u = torch.rand((B,), generator=generator, device=dev)
@@ -269,8 +327,9 @@ def unsharded_iteration(kw: dict, seed: int, dev: str = "cuda") -> dict:
     envs, the draws drawn once on the card from `seed` (the start's reset
     and one iteration), then a second iteration from the trainer's own
     generator, timed. Returns the draws (on the CPU), the first iteration's
-    state, obs, metrics and parameters, and both iterations' seconds and
-    launches."""
+    state, obs, metrics and parameters, both iterations' seconds and
+    launches, and the env's (reset, compacted, full-width) step counts
+    after each."""
     from sigmarl_tpu_torch import MAPPOCAVs, Parameters
     from sigmarl_tpu_torch.env.reset import ResetDraws
     from sigmarl_tpu_torch.env.structs import state_to
@@ -284,10 +343,12 @@ def unsharded_iteration(kw: dict, seed: int, dev: str = "cuda") -> dict:
                env_state=state_to(state.env_state, "cpu"), obs=state.obs.cpu(),
                metrics={k: float(v) for k, v in m.items()}, params=_flat_parameters(state).cpu(),
                seconds=[sec], launches=[launches], lr=tr.parameters.lr,
-               updates=tr.updates_per_iter, counts=tr.challenge_counts().cpu())
+               updates=tr.updates_per_iter, counts=tr.challenge_counts().cpu(),
+               resets=[reset_counts(tr.env)])
     _, _, sec, launches = _timed_iteration(tr, state)
     out["seconds"].append(sec)
     out["launches"].append(launches)
+    out["resets"].append(reset_counts(tr.env))
     return out
 
 
@@ -307,11 +368,18 @@ def sharded_iteration_rank(shard, device, kw: dict, start, draws) -> dict:
     out = dict(env_state=state_to(gather_world_state(state.env_state, shard), "cpu"),
                obs=shard.all_gather(state.obs).cpu(),
                metrics={k: float(v) for k, v in m.items()}, params=_flat_parameters(state).cpu(),
-               seconds=[sec], launches=[launches], counts=tr.challenge_counts().cpu())
+               seconds=[sec], launches=[launches], counts=tr.challenge_counts().cpu(),
+               resets=[reset_counts(tr.env)])
     _, _, sec, launches = _timed_iteration(tr, state)
     out["seconds"].append(sec)
     out["launches"].append(launches)
+    out["resets"].append(reset_counts(tr.env))
     return out
+
+
+def reset_counts(env) -> tuple:
+    """The env's (reset, compacted, full-width) reset-step counts."""
+    return env.reset_steps, env.compact_reset_steps, env.full_reset_steps
 
 
 def policy_rows_invariant(policy, obs: torch.Tensor, rows: int) -> float:
@@ -336,7 +404,9 @@ def sharded_vs_unsharded(ref: dict, ranks: List[dict], what: str) -> List[Check]
     - the parameters: at least 99 % within 1e-6 of the unsharded ones and
       all within 2 lr per update; every rank's equal to rank 0's;
     - the metrics: `n_done` equal, the rest to a relative 1e-4;
-    - launches: K1 and K2 once per rollout step on every rank."""
+    - launches: K1 and K2 once per rollout step on every rank;
+    - the reset-step counts (reset, compacted, full width) of every rank
+      equal the unsharded env's: the branch is decided over all envs."""
     checks = []
     r0 = ranks[0]
     worst, exact = 0.0, True
@@ -378,6 +448,10 @@ def sharded_vs_unsharded(ref: dict, ranks: List[dict], what: str) -> List[Check]
     checks.append(Check(f"{what}: challenge (records, replays) differ",
                         float((r0["counts"] - ref["counts"]).abs().sum()), 0.0,
                         bool(torch.equal(r0["counts"], ref["counts"]))))
+    for rank, r in enumerate(ranks):
+        checks.append(Check(f"{what}: rank {rank} reset-step counts {r['resets']} differ from "
+                            f"{ref['resets']}", float(r["resets"] != ref["resets"]), 0.0,
+                            r["resets"] == ref["resets"]))
     T = len(ref["draws"].reset_draws)
     for rank, r in enumerate(ranks):
         for it, launches in enumerate(r["launches"]):

@@ -30,6 +30,7 @@ from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step
 from sigmarl_tpu_torch.utils.card_checks import (
     challenge_buffer_steps_card_vs_cpu,
     clf_step_card_vs_cpu,
+    compact_reset_card_vs_cpu,
     near_zero_clf_rows,
 )
 
@@ -663,6 +664,19 @@ def test_challenge_buffer_record_and_replay_on_the_card_match_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
     checks = challenge_buffer_steps_card_vs_cpu("cuda")
+    assert all(c.ok for c in checks), [c for c in checks if not c.ok]
+
+
+def test_compacted_reset_on_the_card_matches_the_cpu():
+    """Steps at B=1024 (cpm_entire, N=4) from the same state and draws on
+    the card and the CPU, two whose spawn is compacted (about 23 % of the
+    envs reset) and one at full width (half of them), to the tolerances
+    of `utils/card_checks.py::compact_reset_card_vs_cpu`: the same branch,
+    done flags and ids equal, positions and rewards 2e-5, observations
+    1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    checks = compact_reset_card_vs_cpu("cuda")
     assert all(c.ok for c in checks), [c for c in checks if not c.ok]
 
 

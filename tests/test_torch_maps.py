@@ -14,7 +14,8 @@ from sigmarl_tpu.maps.manager import parse_map as jax_parse_map
 from sigmarl_tpu_torch.constants import SCENARIOS
 from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.env.map_tables import MapTables, build_map_tables
-from sigmarl_tpu_torch.maps.manager import load_map
+from sigmarl_tpu.maps.manager import MapManager as JaxMapManager
+from sigmarl_tpu_torch.maps.manager import MapManager, load_map, parse_map
 
 torch.set_num_threads(1)
 OSM = sorted(s for s in JAX_SCENARIOS if "cpm" not in s)
@@ -83,6 +84,19 @@ def test_osm_parse_matches_golden():
         assert bool(p.is_loop) == bool(g[f"p{i}_loop"])
 
 
+def _assert_maps_equal(ours, ref, what):
+    assert ours.neighboring_lanelets_idx == ref.neighboring_lanelets_idx, what
+    assert ours.bounds == ref.bounds, what
+    for a, b in zip(ours.lanelets + ours.reference_paths, ref.lanelets + ref.reference_paths,
+                    strict=True):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(y, np.ndarray):
+                np.testing.assert_array_equal(x, y, err_msg=f"{what} {f.name}")
+            else:
+                assert x == y, (what, f.name)
+
+
 @pytest.mark.parametrize("lane_width", [None, 0.25])
 def test_osm_parse_matches_jax(lane_width):
     """Every OSM scenario of the registry (the port's own copies of the
@@ -91,14 +105,30 @@ def test_osm_parse_matches_jax(lane_width):
     and index list equal."""
     assert set(SCENARIOS) == set(JAX_SCENARIOS)
     for scen in OSM:
-        ours, ref = load_map(scen, lane_width=lane_width), jax_parse_map(scen, lane_width=lane_width)
-        assert ours.neighboring_lanelets_idx == ref.neighboring_lanelets_idx, scen
-        assert ours.bounds == ref.bounds, scen
-        for a, b in zip(ours.lanelets + ours.reference_paths, ref.lanelets + ref.reference_paths,
-                        strict=True):
-            for f in dataclasses.fields(a):
-                x, y = getattr(a, f.name), getattr(b, f.name)
-                if isinstance(y, np.ndarray):
-                    np.testing.assert_array_equal(x, y, err_msg=f"{scen} {f.name}")
-                else:
-                    assert x == y, (scen, f.name)
+        _assert_maps_equal(load_map(scen, lane_width=lane_width),
+                           jax_parse_map(scen, lane_width=lane_width), scen)
+
+
+@pytest.mark.parametrize("scenario", ["cpm_entire", "roundabout_1"])
+def test_parse_map_and_map_manager_match_jax(scenario):
+    """`parse_map` (CPM XML and OSM) parses as the JAX package's does, and
+    `MapManager` holds the same map as the JAX package's facade, with the
+    device it was given; an unknown scenario raises."""
+    _assert_maps_equal(parse_map(scenario), jax_parse_map(scenario), scenario)
+    width = None if "cpm" in scenario else 0.25  # an OSM map with another lane width
+    manager = MapManager(scenario, device="cpu", lane_width=width)
+    ref = JaxMapManager(scenario, lane_width=width)
+    assert manager.device == torch.device("cpu") and manager.parser is manager.map_data
+    _assert_maps_equal(manager.parser, ref.parser, f"{scenario} manager")
+    with pytest.raises(ValueError, match="unknown scenario"):
+        parse_map("intersection_99")
+
+
+def test_map_manager_needs_a_card_unless_asked_for_the_cpu():
+    """Like the port's entry points, `MapManager` goes to `cuda` by
+    default: without a card that raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        assert MapManager("intersection_1").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MapManager("intersection_1")

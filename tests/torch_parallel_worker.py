@@ -83,3 +83,50 @@ def iteration_rank(shard, device, kw, env_changes, start, draws, step=None, pair
             out["xpmarl"] = iteration_rank(Shard(shard.rank, 2, group), device, pair[0], {},
                                            pair[1], pair[2])
     return out
+
+
+def collide(state, envs):
+    """`state` with agent 1 put 2 cm from agent 0 in `envs` (a port
+    state): those envs collide in the next step."""
+    from sigmarl_tpu_torch.env.structs import replace_state
+
+    pos = state.pos.clone()
+    pos[envs, 1] = pos[envs, 0] + torch.tensor([0.02, 0.0])
+    return replace_state(state, pos=pos)
+
+
+def env_steps_rank(shard, device, kw, state, actions, draws, colliding):
+    """Env steps on this rank's envs of the global `state`: before step t
+    the envs `colliding[t]` (global indices) collide, then the step runs
+    with the global actions [B, N, 2] and reset draws cut to the rank.
+    Returns the gathered state, obs, reward and done of every step, the
+    collectives each step called, and this rank's (reset, compacted,
+    full-width) reset-step counts."""
+    env = make_env(tcfg.Parameters(**kw), device=str(device), shard=shard)
+    B = state.pos.shape[0]
+    sl = shard.env_slice(B)
+    s = shard_world_state(state, shard.rank, shard.world)
+    steps, calls = [], []
+    real = {name: getattr(dist, name) for name in ("all_gather", "all_reduce", "broadcast")}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[-1].append(name)
+            return real[name](*args, **kwargs)
+        return call
+
+    for act, rd, envs in zip(actions, draws, colliding):
+        local = [e - sl.start for e in envs if sl.start <= e < sl.stop]
+        calls.append([])
+        for name in real:
+            setattr(dist, name, counted(name))
+        try:
+            s, obs, rew, done, _ = env.step(collide(s, local), act[sl],
+                                            reset_draws=rd.for_envs(sl))
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        steps.append(dict(state=gather_world_state(s, shard), obs=shard.all_gather(obs),
+                          reward=shard.all_gather(rew), done=shard.all_gather(done)))
+    return dict(steps=steps, collectives=calls,
+                counts=(env.reset_steps, env.compact_reset_steps, env.full_reset_steps))

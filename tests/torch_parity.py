@@ -5,6 +5,7 @@ random draws for the port's reset."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,8 @@ import sigmarl_tpu.config as jcfg
 import sigmarl_tpu_torch.config as tcfg
 from sigmarl_tpu.env import make_env as jax_make_env
 from sigmarl_tpu.env.env import RoadTrafficEnv as JEnv
+from sigmarl_tpu.env.structs import EnvConfig as JEnvConfig
+from sigmarl_tpu_torch.constants import SCENARIOS
 from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.env.env import RoadTrafficEnv as TEnv
 from sigmarl_tpu_torch.env.env import make_env as torch_make_env
@@ -85,19 +88,61 @@ def as_reset_draws(arrays) -> ResetDraws:
     return ResetDraws(*(None if a is None else torch.from_numpy(np.array(a)) for a in arrays))
 
 
-# One compiled function per env config: eager JAX compiles each operation.
+@dataclasses.dataclass(frozen=True)
+class DrawShape:
+    """The settings of an env config that `reset_draw_arrays` reads: one
+    compiled draw function serves every config of the same shapes."""
+
+    batch_dim: int
+    n_agents: int
+    max_spawn_tries: int
+    scenario_type: str  # "cpm_mixed" or "other": only the former draws Gumbel noise
+    is_challenging_initial_state_buffer: bool
+    challenge_buffer_size: int
+
+    @classmethod
+    def of(cls, cfg) -> "DrawShape":
+        return cls(cfg.batch_dim, cfg.n_agents, cfg.max_spawn_tries,
+                   "cpm_mixed" if cfg.scenario_type == "cpm_mixed" else "other",
+                   cfg.is_challenging_initial_state_buffer, cfg.challenge_buffer_size)
+
+
+# One compiled function per draw shape: eager JAX compiles each operation.
 _reset_draw_arrays_jit = jax.jit(reset_draw_arrays, static_argnums=1)
 
 
-def reset_draws(key, cfg) -> ResetDraws:
-    """The random numbers the JAX package's `apply_reset(..., key)` draws."""
-    return as_reset_draws(_reset_draw_arrays_jit(key, cfg))
+def compact_spawn_arrays(key, cfg, budget: int):
+    """The candidates' path and point uniforms that the JAX package's
+    `apply_reset(..., key, compact_budget=budget)` draws: `spawn_positions`
+    splits the spawn key as at full width, but draws at the compacted
+    call's [budget, N, T] shape; traceable."""
+    _, k_spawn, _ = jax.random.split(key, 3)
+    k_path, k_point = jax.random.split(k_spawn)
+    shape = (budget, cfg.n_agents, cfg.max_spawn_tries)
+    return jax.random.uniform(k_path, shape), jax.random.uniform(k_point, shape)
 
 
-def step_reset_draws(key, cfg) -> ResetDraws:
-    """Draws of the reset inside the JAX package's `env.step(..., key)`."""
+_compact_spawn_arrays_jit = jax.jit(compact_spawn_arrays, static_argnums=(1, 2))
+
+
+def reset_draws(key, cfg, compact_budget: int = 0) -> ResetDraws:
+    """The random numbers the JAX package's `apply_reset(..., key)` draws;
+    with `compact_budget` > 0 also those of its compacted spawn at that
+    budget (`path_u_c`, `point_u_c`), so that the draws serve either
+    branch."""
+    draws = as_reset_draws(_reset_draw_arrays_jit(key, DrawShape.of(cfg)))
+    if compact_budget > 0:
+        draws.path_u_c, draws.point_u_c = (
+            torch.from_numpy(np.array(a))
+            for a in _compact_spawn_arrays_jit(key, DrawShape.of(cfg), compact_budget))
+    return draws
+
+
+def step_reset_draws(key, cfg, compact_budget: int = 0) -> ResetDraws:
+    """Draws of the reset inside the JAX package's `env.step(..., key)`
+    (with `compact_budget`, of either branch, as `reset_draws`)."""
     k_reset, _ = jax.random.split(key)
-    return reset_draws(k_reset, cfg)
+    return reset_draws(k_reset, cfg, compact_budget)
 
 
 def env_reset_draws(key, cfg) -> ResetDraws:
@@ -135,3 +180,70 @@ def assert_idx_close(ts, js, tables):
             d = [float(G.min_perpendicular_distance(ts.pos[e, n], poly[int(i) - 1:int(i) + 1]))
                  for i in (a[e, n], b[e, n])]
             assert abs(d[0] - d[1]) <= 1e-6, (side, e, n, d)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scenario_env(scenario: str, n_agents: int, batch: int):
+    """The JAX package's env of `scenario` in training mode (building its
+    map tables compiles a hundred small operations: built once per
+    scenario)."""
+    return jax_make_env(jcfg.Parameters(**params(scenario, n_agents, batch,
+                                                 is_using_cbf_testing=False)))
+
+
+def scenario_envs(scenario: str, n_agents: int, batch: int, testing: bool):
+    """(JAX env, port env on the CPU) of `scenario` in training or testing
+    mode, the JAX env on the map tables of `_jax_scenario_env`."""
+    kw = params(scenario, n_agents, batch, is_using_cbf_testing=False, is_testing_mode=testing)
+    base = _jax_scenario_env(scenario, n_agents, batch)
+    cfg = dataclasses.replace(JEnvConfig.from_parameters(jcfg.Parameters(**kw)),
+                              has_lanelet_neighbors=base.cfg.has_lanelet_neighbors,
+                              all_paths_loop=base.cfg.all_paths_loop)
+    return JEnv(cfg, base.tables), torch_make_env(tcfg.Parameters(**kw), device="cpu")
+
+
+def assert_scenario_matches_jax(scenario: str, testing: bool, batch: int = 4, steps: int = 3):
+    """A reset and `steps` steps of `scenario` at N = min(4, its agents)
+    and B = `batch` in both packages, with fast random actions (agents
+    leave their lanes, collide and reset, alone in testing mode and in
+    the recycling scenarios), each step from the same state and JAX's
+    draws: states within 1e-4 (the boundary indices up to a float32 tie,
+    `assert_idx_close`), rewards within 2e-5, observations within 1e-4,
+    done flags and integer fields equal. Returns the number of envs that
+    reset an agent over the steps."""
+    from tests.test_torch_env import assert_state_close
+
+    n = min(4, SCENARIOS[scenario].get("n_agents", 4))
+    jenv, tenv = scenario_envs(scenario, n, batch, testing)
+    key = jax.random.PRNGKey(sorted(SCENARIOS).index(scenario))
+    k_reset, key = jax.random.split(key)
+    state, jobs = jax.jit(jenv.reset)(k_reset)
+    ts, tobs = tenv.reset(draws=env_reset_draws(k_reset, jenv.cfg))
+    np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=1e-4, rtol=1e-5)
+    assert_state_close(ts, state, atol=1e-4, skip=IDX)
+    assert_idx_close(ts, state, tenv.tables)
+    jstep = jax.jit(jenv.step)
+    for t in range(steps):
+        k_act, k_step = jax.random.split(jax.random.fold_in(key, t))
+        act = jax.random.uniform(k_act, (batch, n, 2), minval=-0.4, maxval=1.0)
+        js, jobs, jrew, jdone, _ = jstep(state, act, k_step)
+        ts, tobs, trew, tdone, _ = tenv.step(
+            to_torch_state(state), torch.from_numpy(np.array(act)),
+            reset_draws=step_reset_draws(k_step, jenv.cfg),
+        )
+        np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone), err_msg=f"step {t}")
+        np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), atol=2e-5, rtol=1e-5,
+                                   err_msg=f"step {t}")
+        np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=1e-4, rtol=1e-5,
+                                   err_msg=f"step {t}")
+        assert_state_close(ts, js, atol=1e-4, skip=IDX)
+        assert_idx_close(ts, js, tenv.tables)
+        state = js
+    return tenv.reset_steps
+
+
+def scenario_group(i: int, n_groups: int = 5) -> list:
+    """Every n_groups-th scenario of the registry from the i-th (the
+    scenario tests spread over n_groups files, so that each runs in about
+    a minute)."""
+    return sorted(SCENARIOS)[i::n_groups]
