@@ -41,6 +41,19 @@ Phases, in order; any failure exits non-zero before the result line:
    4, Kp = 18 pair rows): K1 against its plain version on a grouped input
    with the tolerances of phase 4, 16 timed steps with one launch of each
    kernel per step, K1's time, bound and footprint;
+7a. the main path's measuring and certifying programs through their
+   functions, at full size, each printing its JSON lines, the kernels'
+   launches counted around each: `sigmarl_tpu_torch.bench` at B=1024
+   and as 4 x 1024 sub-batches (one launch of each kernel per sub-batch
+   per step: 192 and 768), `--grouped` (plain and grouped, B=1024) and
+   `--census` (the resetting envs per step over 64 steps);
+   `bench_latency` at B=1 and B=16 (300 timed steps each, a wait for the
+   card after each); `check_warm_start` at B=1024, N=15, 3+5, 20 steps of
+   the (0.5, 0) stress rollout against the cold 2+30 oracle, which must
+   be ok (p99 of the relative objective gap below 1e-3); then K1 and K2
+   against their plain versions, as in phase 4, on the latency path's
+   inputs (B=1 and B=16 at 3+5; K2 at 15 and 240 rows) and K1 on the
+   cold oracle's input (B=1024, also at 2+30);
 8. CBF-informed training at the paper's configuration (cpm_mixed, N=4,
    B=32, T=128, 30 epochs of minibatch 512, "cbf" reward from the
    margins-only filter, observation noise on): 2 iterations of
@@ -136,8 +149,10 @@ Phases, in order; any failure exits non-zero before the result line:
     stepping on the card;
 19. kernel times beside each kernel's bound and its plain version's time,
     K1's shared memory, blocks per SM and waves, the launches on every
-    path above, K1's grouped, training-budget, CLF and one-agent timings
-    and K2's at 1 and 5 circles and with the window (each with its plain
+    path above, K1's grouped, training-budget, CLF, one-agent, latency
+    (B=1, B=16) and cold-oracle (2+30) timings and K2's at 1 and 5
+    circles, with the window and at the latency path's 15 and 240 rows
+    (each with its plain
     version's time, its launches on its path and its largest difference
     from its plain version in phase 18), as one JSON line; then
     the result line. `ms`
@@ -158,7 +173,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -213,12 +227,9 @@ def check(cond, msg: str) -> None:
 
 
 def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    from sigmarl_tpu_torch.device import nvidia_smi_line
+
+    return nvidia_smi_line()
 
 
 def cuda_ms(fn, reps: int, warm: int = 1, queued: bool = False) -> float:
@@ -253,28 +264,10 @@ def cuda_ms_windows(fn, reps: int, windows: int = 7, queued: bool = False) -> di
 
 def host_syncs(fn) -> list:
     """The host syncs while `fn` runs, as "file:line" of the code that
-    waited: the warnings of PyTorch's sync debug mode, one per operation
-    that waits for the card (a read of a value, a copy from pageable host
-    memory)."""
-    import warnings
+    waited (`sigmarl_tpu_torch.device.host_syncs`)."""
+    from sigmarl_tpu_torch.device import host_syncs
 
-    import torch
-
-    torch.cuda.synchronize()
-    # The first switch of the mode in a process waits once itself.
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        torch.cuda.set_sync_debug_mode("warn")
-        torch.cuda.set_sync_debug_mode("default")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
-            if "synchroniz" in str(w.message)]
+    return host_syncs(fn)
 
 
 def rel_gap(a, b):
@@ -330,39 +323,17 @@ def import_port():
 
 
 def setup_main_path(dev):
-    import torch
+    """The main path at its full width (`sigmarl_tpu_torch.bench.main_path`):
+    (env, filter, policy, generator, the all-zero state, zero obs)."""
+    from sigmarl_tpu_torch.bench import main_path
 
-    from sigmarl_tpu_torch import (
-        CBFConfig, CBFSafetyFilter, Parameters, PolicyNet, make_env, zero_state,
-    )
-
-    p = Parameters(
-        scenario_type="cpm_entire", n_agents=N_AGENTS, num_vmas_envs=BATCH, dt=0.1,
-        max_steps=1_000_000, is_use_mtv_distance=False, is_obs_noise=False,
-        is_using_cbf_testing=True, is_using_centralized_cbf=True,
-    )
-    env = make_env(p, device=dev)
-    cbf = CBFSafetyFilter(
-        CBFConfig(n_agents=N_AGENTS, n_circles=3, dt=0.1, newton_iters=5, newton_soft_iters=3),
-        env.cfg, env.tables, device=dev,
-    )
-    policy = PolicyNet(env.obs_dim, device=dev, seed=0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    state = zero_state(env.cfg, dev)
-    obs = torch.zeros((BATCH, N_AGENTS, env.obs_dim), device=dev)
-    return env, cbf, policy, gen, state, obs
+    return main_path(BATCH, N_AGENTS, dev)
 
 
 def policy_actions(env, policy, obs, gen):
-    import torch
+    from sigmarl_tpu_torch.bench import policy_actions
 
-    from sigmarl_tpu_torch import tanh_normal_sample
-
-    lim = env.action_limits
-    with torch.no_grad():
-        loc, scale = policy(obs)
-        act, _ = tanh_normal_sample(loc, scale, -lim, lim, generator=gen)
-    return act
+    return policy_actions(env, policy, obs, gen)
 
 
 def rollout(env, cbf, policy, gen, state, obs, steps):
@@ -706,6 +677,89 @@ def grouped_phase(env, policy, gen, smi) -> dict:
     timing = k1_timing(qp_args, qp_static, 5, 3)
     print_k1_timing("grouped", timing, smi)
     return dict(launches=launches, max_abs_err=err, k1=timing)
+
+
+def run_counted(fn):
+    """(fn's result, the kernels' launches while it ran), the counts set
+    to 0 just before."""
+    zero_launch_counts()
+    out = fn()
+    return out, launch_counts()
+
+
+def check_launches(launches: dict, want: dict, what: str) -> None:
+    for k, n in launches.items():
+        check(n == want[k], f"{what}: {k} launched {n} times, want {want[k]}")
+
+
+def programs_phase(smi) -> dict:
+    """The main path's measuring and certifying programs, through their
+    functions, at full size: the bench at B=1024 and as 4 x 1024 sub-batches
+    (`python -m sigmarl_tpu_torch.bench --batch ...`), `--grouped`,
+    `--census`, the latency at B=1 and B=16 (`bench_latency`) and the
+    warm-start certificate at B=1024, N=15, 3+5, 20 steps
+    (`check_warm_start`), each printing its lines, with the kernels'
+    launches counted around each; then K1 and K2 against their plain
+    versions on the new inputs: the latency path's at B=1 and B=16 (3+5;
+    K2 at 15 and 240 rows) and the certificate's cold oracle (2+30 at
+    B=1024, from the stress rollout's last state)."""
+    from sigmarl_tpu_torch import bench, bench_latency, check_warm_start
+    from sigmarl_tpu_torch.safety.qp import kernel_inputs
+
+    per_chunk = (bench.N_CHUNKS + 1) * bench.T_STEPS  # the warm-up chunk and the timed ones
+    out = {}
+    for batch, n_sub in ((BATCH, 1), (bench.SUB_BATCHES * BATCH, bench.SUB_BATCHES)):
+        rc, launches = run_counted(lambda: bench.main(["--batch", str(batch)]))
+        check(rc == 0, f"bench --batch {batch} exited {rc}")
+        n = per_chunk * n_sub
+        check_launches(launches, {"qp_newton": n, "boundary_stencil": n}, f"bench B={batch}")
+        print(f"bench B={batch}: launches {launches} ({n_sub} of each kernel per step)")
+        out[f"bench_b{batch}"] = launches
+    for flag, n in (("--grouped", 2 * per_chunk),
+                    ("--census", bench.T_STEPS + bench.CENSUS_STEPS)):
+        rc, launches = run_counted(lambda: bench.main([flag]))
+        check(rc == 0, f"bench {flag} exited {rc}")
+        check_launches(launches, {"qp_newton": n, "boundary_stencil": n}, f"bench {flag}")
+        print(f"bench {flag}: launches {launches}")
+        out["bench" + flag.replace("--", "_")] = launches
+
+    # One more step than timed: the one whose host syncs are counted.
+    n = bench_latency.WARMUP_STEPS + 1 + bench_latency.STEPS
+    for batch in bench_latency.BATCHES:
+        r, launches = run_counted(lambda: bench_latency.measure(batch, N_AGENTS))
+        print(json.dumps(r))
+        check_launches(launches, {"qp_newton": n, "boundary_stencil": n}, f"latency B={batch}")
+        check(math.isfinite(r["p99"]), f"latency B={batch}: p99 {r['p99']}")
+        out[f"latency_b{batch}"] = launches
+        env, cbf, policy, gen, _, _ = bench.main_path(batch, N_AGENTS, "cuda")
+        state, obs = env.reset(generator=gen)
+        state, obs, finite, _ = rollout(env, cbf, policy, gen, state, obs,
+                                        bench_latency.WARMUP_STEPS)
+        check(finite, f"non-finite values on the latency path at B={batch}")
+        qp_args, qp_static, pd_args = capture_kernel_inputs(env, cbf, policy, gen, state, obs)
+        out[f"latency_b{batch}_inputs"] = (qp_args, qp_static, pd_args,
+                                           check_kernels(qp_args, qp_static, pd_args))
+
+    (line, (env, warm, cold, state, act)), launches = run_counted(
+        lambda: check_warm_start.certificate(BATCH, N_AGENTS, 5, 3, 10.0, 30, CERT_STEPS,
+                                             device="cuda"))
+    print(json.dumps(line))
+    # Per step: the cold and the warm solve, the two evaluations and the
+    # step's own solve (K1); the three assemblies and the step's (K2).
+    check_launches(launches, {"qp_newton": 5 * CERT_STEPS, "boundary_stencil": 4 * CERT_STEPS},
+                   "certificate")
+    check(line["n_instances"] == BATCH * CERT_STEPS and line["ok"],
+          f"the warm-start certificate is not ok: {line['gap_quantiles']}")
+    out["certificate"] = launches
+    cons, u_nom, _, _ = cold.assemble(state, act)
+    cfg = cold.cfg
+    cold_args = kernel_inputs(cons, u_nom, (cold.a_min, cold.rate_min),
+                              (cold.a_max, cold.rate_max), None, cfg.newton_ws_cap)
+    cold_static = ((cfg.w_u_acc, cfg.w_u_steer), (cold.a_min, cold.rate_min),
+                   (cold.a_max, cold.rate_max))
+    err = check_qp(cold_args, cold_static, " cold", budgets=((30, 0), (5, 3), (30, 2)))
+    out["cold"] = (cold_args, cold_static, err)
+    return out
 
 
 def _finite_losses(m) -> bool:
@@ -1163,6 +1217,9 @@ def xpmarl_small_check(dev) -> None:
 EVAL_STEPS, ITSC_STEPS, TESTING_STEPS, AT25_STEPS, WIDE_CLF_STEPS = 128, 32, 128, 256, 16
 # The windowed stencil's run (pd_topk_chunks = 0), which no paper's run sets.
 WINDOW_STEPS = 32
+# The warm-start certificate's stress rollout at the bench's scale
+# (`scripts/check_warm_start_tpu.py --steps 20`).
+CERT_STEPS = 20
 
 
 def launch_counts() -> dict:
@@ -1914,6 +1971,7 @@ def main() -> int:
     compact_small_check(dev)
 
     grouped = grouped_phase(env, policy, gen, smi)
+    programs = programs_phase(smi)
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(HERE, "outputs")) as wd:
         informed = informed_training_phase(dev, smi, wd)
@@ -1951,6 +2009,9 @@ def main() -> int:
                  "cbf_eval_windowed": evals["windowed"]["launches"][k],
                  **{f"itsc25_c{C}": itsc[C]["launches"][k] for C in itsc},
                  "clf_wide": wide_clf["launches"][k],
+                 **{f"program_{name}": programs[name][k]
+                    for name in ("bench_b1024", "bench_b4096", "bench_grouped", "bench_census",
+                                 "latency_b1", "latency_b16", "certificate")},
                  "at25": at25_run["launches"][k],
                  **{f"sharded_{name}_rank_{r}_iteration_{i + 1}": it[k]
                     for name, run in (("gloo_2_ranks", sharded["2 ranks, gloo, one card"]),
@@ -1975,7 +2036,31 @@ def main() -> int:
                  **k1_timing(*qp, n_iters, soft))
         print_k1_timing(what, r, smi)
         paths["k1"].append(r)
+    for B in (1, 16):
+        qp_args_b, qp_static_b, _, errs_b = programs[f"latency_b{B}_inputs"]
+        r = dict(input=f"latency path, cpm_entire N=15 B={B}",
+                 launches=programs[f"latency_b{B}"]["qp_newton"],
+                 max_abs_err=errs_b["qp_newton"], **k1_timing(qp_args_b, qp_static_b, 5, 3))
+        print_k1_timing(r["input"], r, smi)
+        paths["k1"].append(r)
+    cold_args, cold_static, cold_err = programs["cold"]
+    r = dict(input="cold oracle of the warm-start certificate, N=15 B=1024 (stress rollout)",
+             launches=programs["certificate"]["qp_newton"], max_abs_err=cold_err,
+             **k1_timing(cold_args, cold_static, 30, 2))
+    print_k1_timing(r["input"], r, smi)
+    paths["k1"].append(r)
     paths["k2"] = []
+    for B in (1, 16):
+        _, _, pd_b, errs_b = programs[f"latency_b{B}_inputs"]
+        r = k2_timing(pd_b)
+        r.pop("bound_all")
+        r = dict(input=f"latency path, {B * N_AGENTS} rows (N=15 B={B})",
+                 launches=programs[f"latency_b{B}"]["boundary_stencil"],
+                 max_abs_err=errs_b["boundary_stencil"], **r)
+        print(f"K2 {r['input']}: {r['ms']:.4f} ms queued ({r['ms_min']:.4f} to "
+              f"{r['ms_max']:.4f}), bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.3f} ms, {r['launches']} launches on its path; on {smi}")
+        paths["k2"].append(r)
     for what, run, key in (("C=1, N=1 B=32 (ITSC'25 sweep)", itsc[1], "C=1"),
                            ("C=5, N=1 B=32 (ITSC'25 sweep)", itsc[5], "C=5"),
                            ("window selection, N=4 B=32 (pd_topk_chunks=0)", evals["windowed"],

@@ -707,3 +707,29 @@ def test_one_rank_nccl_iteration_matches_the_unsharded_one():
                         backend="nccl", device="cuda:0")
     bad = [c for c in sharded_vs_unsharded(ref, ranks, "1-rank nccl") if not c.ok]
     assert not bad, bad
+
+
+def test_warm_start_certificate_at_the_fixture():
+    """`check_warm_start`'s certificate at its N=4, B=4 fixture (6 warm
+    iterations, the cold 2+30 oracle, 10 stress steps) on the card: JAX's
+    keys and 40 instances, and every instance whose warm solve ends above
+    1e-3 of the oracle is the warm budget's, not the kernel's: K1 ends
+    where its plain version ends on the same rows, and more iterations
+    from the same start, or the float64 dense oracle, reach the oracle's
+    objective. (The card's generator draws another reset than the CPU's,
+    on which the strict max rule of this fixture does not hold: see
+    ROADMAP C.)"""
+    from sigmarl_tpu_torch import check_warm_start
+    from sigmarl_tpu_torch.utils.certificate_tail import explain, plain_agrees
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    line, _ = check_warm_start.certificate(device="cuda")
+    assert {"check", "backend", "max_objective_gap", "gap_quantiles", "n_instances",
+            "max_u_dev", "ok"} <= set(line)
+    assert line["backend"] == torch.cuda.get_device_name(0) and line["n_instances"] == 40
+    rows = explain(device="cuda")
+    assert len(rows) == round(line["gap_quantiles"]["frac_above_1e3"] * 40)
+    for r in rows:
+        assert plain_agrees(r), r
+        assert min(r["gap_long"], r["gap_dense64"]) <= check_warm_start.GAP_LIMIT, r
