@@ -54,6 +54,20 @@ Phases, in order; any failure exits non-zero before the result line:
    against their plain versions, as in phase 4, on the latency path's
    inputs (B=1 and B=16 at 3+5; K2 at 15 and 240 rows) and K1 on the
    cold oracle's input (B=1024, also at 2+30);
+7b. `check_warm_start` at its default N=4, B=4 fixture (0+6, 10 steps):
+   the stress rollout draws on the host, so the card's reset state must
+   equal the CPU's bit for bit, the card's default generator stays
+   untouched, and the certificate must be ok (max gap below 1e-3);
+7c. weak scaling over ranks (`sigmarl_tpu_torch.bench_scaling` at JAX's
+   defaults: 128 envs per rank, N=15, T=32, 3 timed chunks after one
+   warm-up, the filter at 2+10): K1 and K2 against their plain versions
+   on the bench's input captured in this process at B=128 (K1's controls
+   also bit for bit at 2+10), then the launcher with 1 rank over nccl and
+   2 ranks sharing the card over gloo, each printing its row and the
+   summary: each rank launches each kernel (chunks + 1) x T = 128 times,
+   runs 2 collectives per timed step (the ranks' reset counts and the
+   reward's all-reduce), a finite reward, the card's name and power limit
+   in each row, the 2-rank row marked as mechanics;
 8. CBF-informed training at the paper's configuration (cpm_mixed, N=4,
    B=32, T=128, 30 epochs of minibatch 512, "cbf" reward from the
    margins-only filter, observation noise on): 2 iterations of
@@ -154,7 +168,8 @@ Phases, in order; any failure exits non-zero before the result line:
     circles, with the window and at the latency path's 15 and 240 rows
     (each with its plain
     version's time, its launches on its path and its largest difference
-    from its plain version in phase 18), as one JSON line; then
+    from its plain version in phase 18), K1 at 2+10 and K2 on the
+    scaling bench's input (phase 7c), as one JSON line; then
     the result line. `ms`
     (with `ms_min`, `ms_max`) is the median, least and largest of 7
     CUDA-event windows queued behind a spin on the card, warmed up: the
@@ -760,6 +775,108 @@ def programs_phase(smi) -> dict:
     err = check_qp(cold_args, cold_static, " cold", budgets=((30, 0), (5, 3), (30, 2)))
     out["cold"] = (cold_args, cold_static, err)
     return out
+
+
+def fixture_certificate_phase(smi) -> dict:
+    """`check_warm_start` at its default N=4, B=4 fixture (0+6 warm
+    iterations, the cold 2+30 oracle, 10 stress steps) on the card: the
+    stress rollout draws on the host and resets there (`stress_setup`), so
+    the card's reset state must be the CPU's bit for bit, the card's
+    default generator must stay untouched, and the line must be ok (max
+    gap below 1e-3). Also the card's own reset from the same host draws:
+    the same spawn (integer fields, positions, headings, speeds) bit for
+    bit, and how far the geometry derived from it lies from the CPU's.
+    Returns the kernels' launches."""
+    import dataclasses
+
+    import torch
+
+    from sigmarl_tpu_torch import check_warm_start
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+
+    args = (4, 4, 6, 0, 10.0, 30)
+    env, _, _, card, _, _ = check_warm_start.stress_setup(*args, device="cuda")
+    host = check_warm_start.stress_setup(*args, device="cpu")[3]
+    fields = [f.name for f in dataclasses.fields(host)]
+    differ = [f for f in fields if not torch.equal(getattr(card, f).cpu(), getattr(host, f))]
+    print(f"fixture certificate: reset state on the card against the CPU: "
+          f"{'bit for bit' if not differ else 'fields differ: ' + ', '.join(differ)}")
+    check(not differ, f"the fixture's reset on the card differs from the CPU's in {differ}")
+    own, _ = env.reset(draws=ResetDraws.sample(env.cfg, torch.Generator().manual_seed(0),
+                                               "cpu").to("cuda"))
+    apart = {f: float((getattr(own, f).cpu().double() - getattr(host, f).double()).abs().max())
+             for f in fields if not torch.equal(getattr(own, f).cpu(), getattr(host, f))}
+    print(f"fixture certificate: the card's own reset from the host draws against the CPU's: "
+          f"fields apart (largest difference) {apart}")
+    spawn = {"pos", "rot", "speed", "path_id", "point_id", "scenario_id"}
+    check(not spawn & set(apart), f"the card's spawn from the host draws differs in {apart}")
+    rng = torch.cuda.get_rng_state()
+    (line, _), launches = run_counted(lambda: check_warm_start.certificate(device="cuda"))
+    print(json.dumps(line))
+    check(torch.equal(rng, torch.cuda.get_rng_state()),
+          "the certificate drew from the card's default generator")
+    check_launches(launches, {"qp_newton": 50, "boundary_stencil": 40}, "fixture certificate")
+    check(line["n_instances"] == 40 and line["ok"],
+          f"the fixture's certificate is not ok: max gap {line['max_objective_gap']}, "
+          f"max u dev {line['max_u_dev']}")
+    return launches
+
+
+def scaling_phase(smi) -> dict:
+    """Weak scaling over ranks (`python -m sigmarl_tpu_torch.bench_scaling`)
+    at JAX's defaults: 128 envs per rank, N=15, T=32, one warm-up and 3
+    timed chunks, the filter at 2+10; first K1 and K2 against their plain
+    versions on the input the bench's workload gives them, captured in this
+    process at B=128 after 4 steps from the all-zero state (K1's controls
+    bit for bit after 0 and 1 iterations and at 2+10), then the launcher:
+    1 rank over nccl and 2 ranks sharing the card over gloo. Each rank
+    launches each kernel (chunks + 1) x T times, runs 2 collectives per
+    timed step, a finite reward; the 2-rank row measures mechanics."""
+    import torch
+
+    from sigmarl_tpu_torch import bench_scaling, zero_state
+    from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference
+
+    args = bench_scaling.parse_args([])
+    cfg = bench_scaling.config(args)
+    env, cbf, policy = bench_scaling.workload(cfg, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = zero_state(env.cfg, env.device)
+    obs = torch.zeros((args.per_device_batch, args.n_agents, env.obs_dim), device="cuda")
+    state, obs, finite, _ = rollout(env, cbf, policy, gen, state, obs, 4)
+    check(finite, "non-finite values on the scaling bench's workload")
+    qp_args, qp_static, pd_args = capture_kernel_inputs(env, cbf, policy, gen, state, obs)
+    errs = check_kernels(qp_args, qp_static, pd_args)
+    budget = (args.newton_iters, cbf.cfg.newton_soft_iters)
+    u_k, F_k = newton_solve(*qp_args, *qp_static, budget[0], soft_iters=budget[1])
+    u_p, F_p = newton_solve_reference(*qp_args, *qp_static, budget[0], soft_iters=budget[1])
+    torch.cuda.synchronize()
+    err = float((u_k - u_p).abs().max())
+    print(f"K1 scaling input (N={args.n_agents}, B={args.per_device_batch}, {budget[1]}+"
+          f"{budget[0]}): max |u_kernel - u_plain| = {err:.3e}, max |F_kernel - F_plain| = "
+          f"{float((F_k - F_p).abs().max()):.3e}")
+    check(err == 0.0, f"K1 at {budget[1]}+{budget[0]} differs from its plain version by {err}")
+    errs["qp_newton"] = max(errs["qp_newton"], err)
+
+    lines = bench_scaling.launch(args)
+    rows, summary = lines[:-1], lines[-1]
+    per_rank = (args.chunks + 1) * args.steps
+    check([r["global_devices"] for r in rows] == [1, 2], f"scaling rows {rows}")
+    for r in rows:
+        what = f"scaling, {r['global_devices']} ranks over {r['backend']}"
+        for launches in r["launches"]:
+            check_launches(launches, {"qp_newton": per_rank, "boundary_stencil": per_rank}, what)
+        check(math.isfinite(r["reward"]), f"{what}: reward {r['reward']}")
+        check(r["collectives_per_step"] == 2,
+              f"{what}: {r['collectives_per_step']} collectives per step, want 2")
+        check(r["device"] == smi, f"{what}: device line {r['device']!r}")
+    check(rows[0]["backend"] == "nccl" and not rows[0]["mechanics"],
+          f"1 rank: backend {rows[0]['backend']}, mechanics {rows[0]['mechanics']}")
+    check(rows[1]["backend"] == "gloo" and rows[1]["mechanics"] and rows[1]["cards"] == 1,
+          f"2 ranks on one card: {rows[1]}")
+    check(summary["mechanics"] and summary["efficiency_vs_1dev"][0] == 1.0,
+          f"scaling summary {summary}")
+    return dict(rows=rows, inputs=(qp_args, qp_static, pd_args, errs), budget=budget)
 
 
 def _finite_losses(m) -> bool:
@@ -1972,6 +2089,8 @@ def main() -> int:
 
     grouped = grouped_phase(env, policy, gen, smi)
     programs = programs_phase(smi)
+    fixture_launches = fixture_certificate_phase(smi)
+    scaling = scaling_phase(smi)
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(HERE, "outputs")) as wd:
         informed = informed_training_phase(dev, smi, wd)
@@ -2012,6 +2131,9 @@ def main() -> int:
                  **{f"program_{name}": programs[name][k]
                     for name in ("bench_b1024", "bench_b4096", "bench_grouped", "bench_census",
                                  "latency_b1", "latency_b16", "certificate")},
+                 "program_fixture_certificate": fixture_launches[k],
+                 **{f"scaling_{r['global_devices']}_ranks_{r['backend']}_rank_{i}": n[k]
+                    for r in scaling["rows"] for i, n in enumerate(r["launches"])},
                  "at25": at25_run["launches"][k],
                  **{f"sharded_{name}_rank_{r}_iteration_{i + 1}": it[k]
                     for name, run in (("gloo_2_ranks", sharded["2 ranks, gloo, one card"]),
@@ -2049,7 +2171,24 @@ def main() -> int:
              **k1_timing(cold_args, cold_static, 30, 2))
     print_k1_timing(r["input"], r, smi)
     paths["k1"].append(r)
+    sc_qp, sc_static, sc_pd, sc_errs = scaling["inputs"]
+    sc_launches = scaling["rows"][0]["launches"][0]
+    sc_n, sc_soft = scaling["budget"]
+    r = dict(input=f"weak-scaling bench, cpm_entire N=15 B={sc_qp[2].shape[0]} per rank",
+             launches=sc_launches["qp_newton"], max_abs_err=sc_errs["qp_newton"],
+             **k1_timing(sc_qp, sc_static, sc_n, sc_soft))
+    print_k1_timing(r["input"], r, smi)
+    paths["k1"].append(r)
     paths["k2"] = []
+    r = k2_timing(sc_pd)
+    r.pop("bound_all")
+    r = dict(input=f"weak-scaling bench, {sc_pd[0].shape[0]} rows per rank (N=15 B=128)",
+             launches=sc_launches["boundary_stencil"], max_abs_err=sc_errs["boundary_stencil"],
+             **r)
+    print(f"K2 {r['input']}: {r['ms']:.4f} ms queued ({r['ms_min']:.4f} to {r['ms_max']:.4f}), "
+          f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, plain {r['plain_ms']:.3f} ms, "
+          f"{r['launches']} launches per rank on its path; on {smi}")
+    paths["k2"].append(r)
     for B in (1, 16):
         _, _, pd_b, errs_b = programs[f"latency_b{B}_inputs"]
         r = k2_timing(pd_b)

@@ -15,7 +15,15 @@ runs is certified at its own scale:
 
 The stress rollout: `env.reset` from a generator seeded 0, then every
 agent's action fixed at (0.5, 0), each step filtered by the warm filter
-(warm-started from the previous step's solution). At every step, before
+(warm-started from the previous step's solution). Every random number of
+the rollout (the reset, the later resets' spawns) is drawn from that
+generator on the host and moved to the device: torch's CPU and CUDA
+generators draw different numbers from one seed, so a card and the CPU
+certify the same instances, as JAX's PRNG does on every backend. The
+reset itself also runs on the host: from the same draws the card's
+reset places the same poses but rounds the geometry derived from them
+(velocities, vertices, distances) an ulp apart, so the card starts from
+the CPU's reset state, bit for bit. At every step, before
 the step, both filters solve the same state: the warm one from the
 previous solution, the cold oracle (2 ladder iterations at cap 10, then
 `--cold-iters` full-stiffness ones) from the nominal input. Both
@@ -43,6 +51,8 @@ from torch import Tensor
 from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.device import device_line, resolve_device
 from sigmarl_tpu_torch.env.env import make_env
+from sigmarl_tpu_torch.env.reset import ResetDraws
+from sigmarl_tpu_torch.env.structs import state_to
 from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter
 from sigmarl_tpu_torch.safety.qp import solve_structured_qp
 from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step
@@ -56,7 +66,9 @@ N_WORST = 8
 def stress_setup(batch: int, n_agents: int, warm_iters: int, soft_iters: int, soft_cap: float,
                  cold_iters: int, scenario: str = "cpm_entire", device=None):
     """(env, warm filter, cold filter, reset state, the fixed action,
-    generator) of the stress rollout."""
+    generator) of the stress rollout. The generator is on the host, seeded
+    0; the reset runs on the host from its draws and moves to the
+    device."""
     dev = resolve_device(device)
     p = Parameters(
         scenario_type=scenario, n_agents=n_agents, num_vmas_envs=batch, dt=0.1,
@@ -77,8 +89,10 @@ def stress_setup(batch: int, n_agents: int, warm_iters: int, soft_iters: int, so
                   newton_soft_iters=2, newton_soft_cap=10.0),
         env.cfg, env.tables, device=dev,
     )
-    gen = torch.Generator(device=dev).manual_seed(0)
-    state, _ = env.reset(generator=gen)
+    gen = torch.Generator().manual_seed(0)
+    host = env if dev.type == "cpu" else make_env(p, device="cpu")
+    state, _ = host.reset(draws=ResetDraws.sample(host.cfg, gen, "cpu"))
+    state = state_to(state, dev)
     act = torch.zeros((batch, n_agents, 2), device=dev)
     act[..., 0], act[..., 1] = STRESS_ACTION
     return env, warm, cold, state, act, gen
@@ -130,8 +144,10 @@ def certify(gaps: np.ndarray, max_err: float) -> dict:
 
 
 def run(env, warm, cold, state, act, gen, steps: int):
-    """The stress rollout with the gap at every step. Returns (gaps
-    [steps, B] as numpy, largest control difference, final state)."""
+    """The stress rollout with the gap at every step, the steps' draws
+    from `gen` (a host generator: each step draws what its reset needs on
+    the host and moves it to the device). Returns (gaps [steps, B] as
+    numpy, largest control difference, final state)."""
     gaps, errs = [], []
     for _ in range(steps):
         gap, err = objective_gap(warm, cold, state, act)

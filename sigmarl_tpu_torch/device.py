@@ -42,6 +42,17 @@ def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.T
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+def uniform(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """Uniforms in [0, 1) of `shape` on `device`, drawn on the generator's
+    own device and then moved: a host generator gives the same numbers
+    whatever device the caller runs on (torch's CPU and CUDA generators
+    draw different numbers from one seed). Without a generator, from the
+    device's default one."""
+    if generator is None:
+        return torch.rand(shape, device=device)
+    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the card's queue on a CUDA device; nothing on the CPU."""
     if device.type == "cuda":

@@ -31,7 +31,7 @@ import torch
 from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.core.dynamics import BicycleParams, command_step
-from sigmarl_tpu_torch.device import constant, resolve_device
+from sigmarl_tpu_torch.device import constant, resolve_device, uniform
 from sigmarl_tpu_torch.env.map_tables import MapTables, build_map_tables
 from sigmarl_tpu_torch.env.observations import observe_with_history
 from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, compact_slots, initial_state
@@ -176,7 +176,7 @@ class RoadTrafficEnv:
         if cfg.is_challenging_initial_state_buffer:
             record_u = None if reset_draws is None else reset_draws.record_u
             if record_u is None:
-                record_u = torch.rand((), generator=generator, device=self.device)
+                record_u = uniform((), generator, self.device)
             state, n_recorded = record_challenging_states(cfg, state, record_u, self.shard)
             self.challenge_counts[0] += n_recorded
         # The host reads how many envs reset (one device sync per step) and

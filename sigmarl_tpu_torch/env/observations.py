@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from sigmarl_tpu_torch.core import geometry as G
-from sigmarl_tpu_torch.device import constant
+from sigmarl_tpu_torch.device import constant, uniform
 from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state
 
@@ -183,7 +183,7 @@ def _finalize(
         obs = torch.cat([obs, pad], dim=-1)
     if cfg.is_obs_noise:
         if noise is None:
-            noise = torch.rand(obs.shape, generator=generator, device=obs.device)
+            noise = uniform(obs.shape, generator, obs.device)
         obs = obs + cfg.obs_noise_level * noise
     return obs
 

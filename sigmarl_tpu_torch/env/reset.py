@@ -26,7 +26,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from sigmarl_tpu_torch.device import constant
+from sigmarl_tpu_torch.device import constant, uniform
 from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state, zero_state
 from sigmarl_tpu_torch.env.updates import (
@@ -84,11 +84,13 @@ class ResetDraws:
         `compact_slots` > 0 (a caller that draws before it knows the
         branch asks for both). `cb_valid` (the state's count of valid
         records, on the device) bounds the replay pick, which is drawn as
-        floor(u * max(cb_valid, 1)) without a host sync."""
+        floor(u * max(cb_valid, 1)) without a host sync. The uniforms are
+        drawn on the generator's device and moved to `device`, so a host
+        generator gives the same draws on every device."""
         B, N, T = cfg.batch_dim, cfg.n_agents, cfg.max_spawn_tries
 
         def u(*shape):
-            return torch.rand(shape, generator=generator, device=device)
+            return uniform(shape, generator, device)
 
         gumbel = None
         if cfg.scenario_type == "cpm_mixed":

@@ -39,7 +39,7 @@ import torch
 
 from sigmarl_tpu_torch.constants import AGENTS
 from sigmarl_tpu_torch.core.geometry import angle_eliminate_two_pi
-from sigmarl_tpu_torch.device import resolve_device
+from sigmarl_tpu_torch.device import resolve_device, uniform
 from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState
 from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
@@ -355,7 +355,7 @@ class CBFSafetyFilter:
         v, psi = state.speed, state.rot
         if cfg.is_obs_noise:
             if noise is None:
-                noise = torch.rand(rl_actions.shape, generator=generator, device=dev)
+                noise = uniform(rl_actions.shape, generator, dev)
             rl_actions = rl_actions + noise * cfg.obs_noise_level
         use_clf = cfg.nom_controller_type == "clf"
         if use_clf:

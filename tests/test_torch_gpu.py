@@ -711,25 +711,63 @@ def test_one_rank_nccl_iteration_matches_the_unsharded_one():
 
 def test_warm_start_certificate_at_the_fixture():
     """`check_warm_start`'s certificate at its N=4, B=4 fixture (6 warm
-    iterations, the cold 2+30 oracle, 10 stress steps) on the card: JAX's
-    keys and 40 instances, and every instance whose warm solve ends above
-    1e-3 of the oracle is the warm budget's, not the kernel's: K1 ends
-    where its plain version ends on the same rows, and more iterations
-    from the same start, or the float64 dense oracle, reach the oracle's
-    objective. (The card's generator draws another reset than the CPU's,
-    on which the strict max rule of this fixture does not hold: see
-    ROADMAP C.)"""
+    iterations, the cold 2+30 oracle, 10 stress steps) on the card: the
+    stress rollout draws on the host, so the card's reset state is the
+    CPU's bit for bit and the card's default generator stays untouched;
+    JAX's keys, 40 instances, and ok (max gap below 1e-3). Also every
+    instance whose warm solve ends above 1e-3 of the oracle (none when
+    ok) is the warm budget's, not the kernel's: K1 ends where its plain
+    version ends on the same rows, and more iterations from the same
+    start, or the float64 dense oracle, reach the oracle's objective."""
+    import dataclasses
+
     from sigmarl_tpu_torch import check_warm_start
     from sigmarl_tpu_torch.utils.certificate_tail import explain, plain_agrees
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    args = (4, 4, 6, 0, 10.0, 30)
+    card = check_warm_start.stress_setup(*args, device="cuda")[3]
+    host = check_warm_start.stress_setup(*args, device="cpu")[3]
+    for f in dataclasses.fields(card):
+        assert torch.equal(getattr(card, f.name).cpu(), getattr(host, f.name)), f.name
+    rng = torch.cuda.get_rng_state()
     line, _ = check_warm_start.certificate(device="cuda")
+    assert torch.equal(rng, torch.cuda.get_rng_state())
     assert {"check", "backend", "max_objective_gap", "gap_quantiles", "n_instances",
             "max_u_dev", "ok"} <= set(line)
     assert line["backend"] == torch.cuda.get_device_name(0) and line["n_instances"] == 40
+    assert line["ok"], line
     rows = explain(device="cuda")
     assert len(rows) == round(line["gap_quantiles"]["frac_above_1e3"] * 40)
     for r in rows:
         assert plain_agrees(r), r
         assert min(r["gap_long"], r["gap_dense64"]) <= check_warm_start.GAP_LIMIT, r
+
+
+def test_bench_scaling_on_one_card():
+    """`python -m sigmarl_tpu_torch.bench_scaling` at a small size (16 envs
+    per rank, N=15, T=4, one timed chunk): 1 rank over nccl, 2 ranks
+    sharing `cuda:0` over gloo. Each rank launches each kernel once per
+    step, 2 collectives per step, a finite reward; the 2-rank row and the
+    summary measure mechanics on one card, with the card's name in each
+    row."""
+    import math
+
+    from sigmarl_tpu_torch import bench_scaling
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    lines = bench_scaling.launch(bench_scaling.parse_args(
+        ["--per_device_batch", "16", "--steps", "4", "--chunks", "1"]))
+    rows, summary = lines[:-1], lines[-1]
+    cards = torch.cuda.device_count()
+    assert [r["global_devices"] for r in rows] == summary["sizes"] == [1, 2]
+    for r in rows:
+        W = r["global_devices"]
+        assert (r["backend"], r["cards"], r["mechanics"]) == (
+            ("nccl", W, False) if W <= cards else ("gloo", 1, True))
+        assert r["launches"] == [{"qp_newton": 8, "boundary_stencil": 8}] * W
+        assert r["collectives_per_step"] == 2 and math.isfinite(r["reward"])
+        assert r["batch"] == 16 * W and torch.cuda.get_device_name(0) in r["device"]
+    assert summary["efficiency_vs_1dev"][0] == 1.0 and summary["mechanics"] == (cards < 2)

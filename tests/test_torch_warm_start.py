@@ -4,6 +4,7 @@ check_warm_start_tpu.py`, `tests/test_warm_start.py`): the stress rollout
 from the same states with the same draws, the objective evaluation both
 certificates rest on, and the program's result line."""
 
+import dataclasses
 import json
 
 import jax
@@ -157,3 +158,34 @@ def test_program_at_the_fixture_prints_jax_keys(capsys):
     assert line["check"] == "warm_start_certificate" and line["backend"] == "cpu"
     assert line["n_instances"] == B * STEPS and line["ok"] and rc == 0
     assert line["max_objective_gap"] < GAP_LIMIT and line["max_u_dev"] < 2e-2
+
+
+def test_stress_rollout_draws_only_from_a_host_generator(monkeypatch):
+    """The stress rollout's random numbers come from one CPU generator
+    seeded 0, so a card certifies the CPU's instances: `stress_setup`'s
+    reset state is `env.reset` on the draws of `torch.Generator()` seeded
+    0, field for field; along the rollout every uniform is drawn from the
+    returned generator (on the host), none from a device's default
+    generator (whose state stays as it was), and the resets do draw."""
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+
+    env, warm, cold, state, act, gen = cws.stress_setup(B, N, WARM_ITERS, 0, 10.0, 30,
+                                                        device="cpu")
+    ref, _ = env.reset(draws=ResetDraws.sample(env.cfg, torch.Generator().manual_seed(0), "cpu"))
+    for f in dataclasses.fields(state):
+        assert torch.equal(getattr(state, f.name), getattr(ref, f.name)), f.name
+    assert gen.device.type == "cpu"
+
+    used, rand = [], torch.rand
+
+    def recording_rand(*args, generator=None, **kw):
+        used.append(generator)
+        return rand(*args, generator=generator, **kw)
+
+    monkeypatch.setattr(torch, "rand", recording_rand)
+    default, before = torch.get_rng_state(), gen.get_state()
+    cws.run(env, warm, cold, state, act, gen, STEPS)
+    assert env.reset_steps > 0 and used
+    assert all(g is gen for g in used)
+    assert torch.equal(torch.get_rng_state(), default)
+    assert not torch.equal(gen.get_state(), before)
