@@ -74,6 +74,14 @@ Phases, in order; any failure exits non-zero before the result line:
    `MAPPOCAVs.train`, K2 launched 128 times and K1 never per iteration,
    finite losses, moved weights, the checkpoint reloaded equal; seconds per
    iteration split into rollout, GAE and update, and rollout frames/s;
+8a. the learning curve's configuration at full size (cpm_mixed, N=4,
+    B=128, T=128, 30 epochs of minibatch 512): one iteration whose update
+    is the CUDA graph captured once per trainer and replayed for each of
+    the 960 minibatches (every unsharded training phase without PRB or
+    debug_numerics updates that way), then the same frames and draws
+    updated by the graph and by the same program run eagerly from the same
+    networks and moments: bit for bit, no host sync in the replays, the
+    update's seconds both ways and the launches of one minibatch update;
 9. CBF-filtered training, one iteration at the main path's width (N=15,
    B=1024, T=16, centralized filter at its 2+15 budget, minibatch 4096) and
    one decentralized at N=4, B=32: K1 and K2 launched 16 times each, the
@@ -945,6 +953,54 @@ def informed_training_phase(dev, smi, workdir) -> list:
               f"the reloaded {name} checkpoint differs")
     print(f"CBF-informed training: checkpoints {sorted(os.listdir(ckpt.model_dir(p)))} reload equal")
     return per_iter
+
+
+def update_graph_phase(dev, smi, workdir) -> dict:
+    """The learning curve's configuration at full size
+    (`learning_curve.parameters`: cpm_mixed, N=4, B=128, T=128, 30 epochs
+    of minibatch 512, observation noise on, entropy_eps 4e-3): one
+    iteration of `MAPPOCAVs.train_iteration`, whose update is the captured
+    CUDA graph (960 replays; the capture in the same call), then one more
+    rollout whose frames and update draws go through the update twice,
+    from the same networks and moments: by the graph and by the same
+    program run eagerly (a second trainer with `update_graph=False`).
+    Every parameter, moment and loss statistic equal bit for bit, no host
+    sync while the replays run (PyTorch's sync debug mode), no kernel of
+    the port launched, the update's seconds both ways and the kernels,
+    copies and fills of one minibatch update (the profiler over one eager
+    step)."""
+    import torch
+
+    from sigmarl_tpu_torch import MAPPOCAVs, learning_curve
+    from sigmarl_tpu_torch.utils.card_checks import launches_per_update, update_graph_vs_eager
+
+    p = learning_curve.parameters(250, 0, dev, os.path.join(workdir, "lc") + "/")
+    tr, eager = MAPPOCAVs(p), MAPPOCAVs(p, update_graph=False)
+    check(tr.update_graph and not eager.update_graph and tr.updates_per_iter == 960,
+          "the learning-curve trainer's update is not the graph")
+    state = tr.initial_state()
+    zero_launch_counts()
+    state, m = tr.train_iteration(state)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print_iteration("learning-curve training (graph update)", 0, m, p.frames_per_batch, smi)
+    check(_finite_losses(m), "non-finite loss or reward in the learning-curve iteration")
+    check(launches == {"qp_newton": 0, "boundary_stencil": 0},
+          f"the learning-curve iteration launched {launches}, want none")
+    capture_s = tr.program.capture_seconds
+    r = update_graph_vs_eager(tr, eager, state, torch.Generator(device=dev).manual_seed(9))
+    n = launches_per_update(eager)
+    print(f"update graph (learning curve, 960 minibatch updates): graph against eager "
+          f"{'bit for bit' if r['equal'] else 'DIFFERENT'} (max |d| {r['max_abs_diff']:.3e}); "
+          f"update {r['graph_s']:.3f} s as graph replays, {r['eager_s']:.3f} s eager "
+          f"({r['eager_s'] / r['graph_s']:.1f}x), first iteration's update "
+          f"{m['seconds_update']:.3f} s with the capture ({capture_s:.3f} s); "
+          f"{len(r['syncs'])} host syncs in the replays; {n} launches per minibatch update "
+          f"(kernels, copies and fills); on {smi}")
+    check(r["equal"], f"graph and eager updates differ by {r['max_abs_diff']}")
+    check(not r["syncs"], f"host syncs in the graph replays at {r['syncs']}")
+    return dict(graph_s=r["graph_s"], eager_s=r["eager_s"], launches_per_update=n,
+                first_update_s=m["seconds_update"], capture_s=capture_s)
 
 
 def filtered_training_phase(dev, smi, workdir) -> dict:
@@ -2094,6 +2150,7 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "outputs"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(HERE, "outputs")) as wd:
         informed = informed_training_phase(dev, smi, wd)
+        update_graph_phase(dev, smi, wd)
         filtered = filtered_training_phase(dev, smi, wd)
         ppo_update_check(dev)
         xpmarl = xpmarl_training_phase(dev, smi, wd)

@@ -32,7 +32,13 @@ it runs as sub-batches the same way. The last line is one JSON object:
 `scripts/bench_grouped.py`. `--census` (its `scripts/measure_resets.py`)
 runs 64 untimed steps after the warm-up chunk and prints the distribution
 of resetting envs per step and the share of steps that took each branch of
-the reset (none, compacted, full width).
+the reset (none, compacted, full width). Its draws come from a host
+generator, moved to the card, so the card starts from the CPU's instances;
+the two rollouts part within a few steps all the same, where the filter's
+float32 solve turns rounding differences into millimetres
+(`utils/census_parity.py`). The timed runs draw on the card: drawn on the
+host, the rate at B=1024 fell from 55,158-60,051 to 33,645-37,014
+env-steps/s on an H100 (700 W).
 
 `--n_agents`, `--steps` (T) and `--chunks` cut the run for the CPU
 (`--device cpu`, where the kernels run their plain versions): for example
@@ -51,7 +57,7 @@ import numpy as np
 import torch
 
 from sigmarl_tpu_torch.config import Parameters
-from sigmarl_tpu_torch.device import device_line, resolve_device, synchronize
+from sigmarl_tpu_torch.device import device_line, normal, resolve_device, synchronize
 from sigmarl_tpu_torch.env.env import make_env
 from sigmarl_tpu_torch.env.reset import compact_slots
 from sigmarl_tpu_torch.env.structs import zero_state
@@ -67,9 +73,10 @@ CENSUS_THRESHOLDS = (8, 16, 32, 64, 128)
 
 
 def main_path(batch: int, n_agents: int, device, newton_iters: int = 5, soft_iters: int = 3,
-              grouped: bool = False):
+              grouped: bool = False, draws_on=None):
     """The main path at `batch` envs: (env, filter, policy, generator from
-    seed 0, the all-zero state, zero observations). cpm_entire, no
+    seed 0 on `draws_on` (by default the device), the all-zero state, zero
+    observations). cpm_entire, no
     observation noise, no MTV distance, no episode-end resets; the
     centralized filter at `soft_iters` + `newton_iters` iterations, with
     groups of at most 4 agents if `grouped`; the 3x256 policy from seed 0."""
@@ -86,18 +93,19 @@ def main_path(batch: int, n_agents: int, device, newton_iters: int = 5, soft_ite
         env.cfg, env.tables, max_group_size=4 if grouped else 0, device=dev,
     )
     policy = PolicyNet(env.obs_dim, device=dev, seed=0)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=draws_on or dev).manual_seed(0)
     state = zero_state(env.cfg, dev)
     obs = torch.zeros((batch, n_agents, env.obs_dim), device=dev)
     return env, cbf, policy, gen, state, obs
 
 
 def policy_actions(env, policy, obs, gen):
-    """The policy's sampled actions at `obs`, noise from `gen`."""
+    """The policy's sampled actions at `obs`, noise from `gen` (drawn on
+    the generator's device and moved)."""
     lim = env.action_limits
     with torch.no_grad():
         loc, scale = policy(obs)
-        act, _ = tanh_normal_sample(loc, scale, -lim, lim, generator=gen)
+        act, _ = tanh_normal_sample(loc, scale, -lim, lim, noise=normal(loc.shape, gen, loc.device))
     return act
 
 
@@ -147,7 +155,7 @@ def sub_batches(env, state, obs, gen, n_sub: int):
     dev = obs.device
     states = [state] + [zero_state(env.cfg, dev) for _ in range(1, n_sub)]
     obs = [obs] + [torch.zeros_like(obs) for _ in range(1, n_sub)]
-    gens = [gen] + [torch.Generator(device=dev).manual_seed(s) for s in range(1, n_sub)]
+    gens = [gen] + [torch.Generator(device=gen.device).manual_seed(s) for s in range(1, n_sub)]
     return states, obs, gens
 
 
@@ -248,7 +256,8 @@ def census(batch: int, steps: int = CENSUS_STEPS, T: int = T_STEPS, n_agents: in
     (in training mode a reset is a whole env: the done envs), and the
     share of those steps that took each branch of the env's reset."""
     dev = resolve_device(device)
-    env, cbf, policy, gen, state, obs = main_path(batch, n_agents, dev, newton_iters, soft_iters)
+    env, cbf, policy, gen, state, obs = main_path(batch, n_agents, dev, newton_iters, soft_iters,
+                                                  draws_on="cpu")
     states, obs, _, _ = rollout_chunk(env, cbf, policy, [state], [obs], [gen], T)
     env.reset_steps = env.compact_reset_steps = env.full_reset_steps = 0
     states, obs, reward, dones = rollout_chunk(env, cbf, policy, states, obs, [gen], steps)

@@ -42,6 +42,15 @@ def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.T
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+def moved(x: torch.Tensor, device) -> torch.Tensor:
+    """`x` on `device`. Host draws go to the card through pinned memory,
+    without waiting for the card (a copy from pageable memory would)."""
+    device = torch.device(device)
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
 def uniform(shape, generator: torch.Generator | None, device) -> torch.Tensor:
     """Uniforms in [0, 1) of `shape` on `device`, drawn on the generator's
     own device and then moved: a host generator gives the same numbers
@@ -50,7 +59,12 @@ def uniform(shape, generator: torch.Generator | None, device) -> torch.Tensor:
     device's default one."""
     if generator is None:
         return torch.rand(shape, device=device)
-    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+    return moved(torch.rand(shape, generator=generator, device=generator.device), device)
+
+
+def normal(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard normals of `shape` on `device`, drawn as `uniform` draws."""
+    return moved(torch.randn(shape, generator=generator, device=generator.device), device)
 
 
 def synchronize(device: torch.device) -> None:

@@ -3,15 +3,15 @@ rises from the initial (random) policy's, with the initial and the trained
 policy evaluated on one deterministic rollout each, aggregated over seeds
 (mean +/- CI95).
 
-    python -m sigmarl_tpu_torch.learning_curve [--n_iters 60] [--seeds 1]
+    python -m sigmarl_tpu_torch.learning_curve [--n_iters 250] [--seeds 3]
         [--num_envs 128] [--out LEARNING_CURVE_TORCH.json] [--device cuda]
 
-The protocol, metrics and JSON keys are those of
+The protocol, metrics, defaults and JSON keys are those of
 `scripts/train_learning_curve.py` (cpm_mixed, N=4, B=128, T=128, 30 epochs
-of minibatch 512, observation noise on, entropy_eps 4e-3, the best-reward
-checkpoint evaluated against the initial policy on the same draws), plus
-the card's name and power limit and each iteration's seconds.
-`tests/test_torch_learning_curve.py` holds the committed artifact.
+of minibatch 512, observation noise on, entropy_eps 4e-3, 250 iterations
+of 3 seeds, the best-reward checkpoint evaluated against the initial
+policy on the same draws), plus the card's name and power limit and each
+iteration's seconds. `tests/test_torch_learning_curve.py` holds the committed artifact.
 """
 
 from __future__ import annotations
@@ -54,15 +54,24 @@ def eval_policy(env, policy_params, seed: int, steps: int = EVAL_STEPS) -> dict:
     }
 
 
-def run_seed(args, seed: int):
-    p = Parameters(
-        scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=args.num_envs, max_steps=128,
-        n_iters=args.n_iters, dt=0.1, is_use_mtv_distance=False, is_obs_noise=True,
+# The protocol's training configuration (30 epochs of minibatch 512 are
+# the `Parameters` defaults).
+TRAINING = dict(scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=128, max_steps=128, dt=0.1,
+                is_use_mtv_distance=False, is_obs_noise=True, entropy_eps=4e-3)
+
+
+def parameters(n_iters: int, seed: int, device: str, where_to_save: str, **changes) -> Parameters:
+    """`TRAINING` (with `changes`) for one seed of `n_iters` iterations."""
+    return Parameters(
+        **{**TRAINING, **changes}, n_iters=n_iters, random_seed=seed, device=device,
         # The best-reward checkpoint is the deployed model, and the one evaluated.
-        is_save_intermediate_model=True,
-        where_to_save=os.path.join(args.work_dir, f"seed{seed}") + "/",
-        random_seed=seed, entropy_eps=args.entropy_eps, device=args.device,
+        is_save_intermediate_model=True, where_to_save=where_to_save,
     )
+
+
+def run_seed(args, seed: int):
+    p = parameters(args.n_iters, seed, args.device, os.path.join(args.work_dir, f"seed{seed}") + "/",
+                   num_vmas_envs=args.num_envs, entropy_eps=args.entropy_eps)
     trainer = MAPPOCAVs(p)
     env = trainer.env
     init_params = to_jax_params(trainer.policy_net)
@@ -121,22 +130,9 @@ def device_description(device: torch.device) -> dict:
     return {"device": torch.cuda.get_device_name(device), "nvidia_smi": smi}
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description="Learning curve of the PyTorch port")
-    ap.add_argument("--n_iters", type=int, default=60)
-    ap.add_argument("--num_envs", type=int, default=128)
-    ap.add_argument("--seeds", type=int, default=1)
-    ap.add_argument("--entropy_eps", type=float, default=4e-3)
-    ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--work_dir", type=str, default="outputs/learning_curve_torch")
-    ap.add_argument("--out", type=str, default="LEARNING_CURVE_TORCH.json")
-    args = ap.parse_args(argv)
-
-    runs, p = [], None
-    for seed in range(args.seeds):
-        p, r = run_seed(args, seed)
-        runs.append(r)
-
+def record(head: dict, runs: list) -> dict:
+    """The artifact: `head` (the configuration and the device) and the
+    aggregates over `runs`, one per seed."""
     histories = np.array([r["reward_history"] for r in runs])  # [S, I]
     hist_mean, hist_ci = _ci95(histories)
     w = max(1, min(5, histories.shape[1] // 4))
@@ -149,18 +145,10 @@ def main(argv=None):
             out[k + "_ci95"] = round(float(c[0]), 4)
         return out
 
-    art = {
-        "scenario": p.scenario_type,
-        "n_agents": p.n_agents,
-        "num_envs": p.num_vmas_envs,
-        "n_iters": p.n_iters,
-        "n_seeds": args.seeds,
-        "entropy_eps": p.entropy_eps,
-        "frames_per_batch": p.frames_per_batch,
-        "total_env_steps": p.frames_per_batch * p.n_iters,
+    return {
+        **head,
+        "n_seeds": len(runs),
         "train_wall_s": round(sum(r["train_wall_s"] for r in runs), 1),
-        "backend": "torch-" + torch.device(args.device).type,
-        **device_description(torch.device(args.device)),
         "reward_history": [round(float(r), 3) for r in hist_mean],
         "reward_history_ci95": [round(float(c), 3) for c in hist_ci],
         "initial_window_mean": round(float(hist_mean[:w].mean()), 3),
@@ -170,6 +158,35 @@ def main(argv=None):
         "eval_final": agg_eval("eval_final"),
         "per_seed": runs,
     }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Learning curve of the PyTorch port")
+    ap.add_argument("--n_iters", type=int, default=250)
+    ap.add_argument("--num_envs", type=int, default=128)
+    ap.add_argument("--seeds", type=int, default=3)
+    ap.add_argument("--entropy_eps", type=float, default=4e-3)
+    ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--work_dir", type=str, default="outputs/learning_curve_torch")
+    ap.add_argument("--out", type=str, default="LEARNING_CURVE_TORCH.json")
+    args = ap.parse_args(argv)
+
+    runs, p = [], None
+    for seed in range(args.seeds):
+        p, r = run_seed(args, seed)
+        runs.append(r)
+    head = {
+        "scenario": p.scenario_type,
+        "n_agents": p.n_agents,
+        "num_envs": p.num_vmas_envs,
+        "n_iters": p.n_iters,
+        "entropy_eps": p.entropy_eps,
+        "frames_per_batch": p.frames_per_batch,
+        "total_env_steps": p.frames_per_batch * p.n_iters,
+        "backend": "torch-" + torch.device(args.device).type,
+        **device_description(torch.device(args.device)),
+    }
+    art = record(head, runs)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(art, f, indent=1)

@@ -28,6 +28,16 @@ a minibatch over the whole minibatch's size, and the gradients are summed
 over the ranks before the clipped Adam step, so every rank takes the same
 step. PRB priorities are gathered over the ranks, metrics reduced, and
 only rank 0 writes checkpoints.
+
+The minibatch update of an unsharded trainer without PRB or
+`debug_numerics` is one `UpdateProgram` (`rl/update_program.py`): on the
+card a CUDA graph captured once per trainer and replayed for every
+minibatch, the counterpart of JAX's jitted update; on the CPU, or with
+`update_graph=False`, the same step run eagerly. The sharded trainer
+(its rows come from a boolean mask, a dynamic shape, and its gradients
+are all-reduced), PRB (its sampling and priority refresh) and
+`debug_numerics` (its finiteness check reads the loss on the host) keep
+the eager loop over `minibatch_update`.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from sigmarl_tpu_torch.rl.priority import (
     prioritized_action_propagation,
     priority_rank,
 )
+from sigmarl_tpu_torch.rl.update_program import UpdateProgram
 from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter
 from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step, cbf_margin_step
 from sigmarl_tpu_torch.utils.debug import assert_finite, enable_debug_numerics
@@ -220,7 +231,12 @@ def compute_td_error(reward, values, next_values, done, gamma: float = 0.9,
 class MAPPOCAVs:
     """Multi-agent PPO trainer. Runs on `device` (by default
     `parameters.device`, "cuda"); with a `shard`, as that rank of a
-    data-parallel group (its env then holds the rank's envs)."""
+    data-parallel group (its env then holds the rank's envs).
+
+    `update_graph`: True (the default) captures the update as a CUDA
+    graph on the card wherever the configuration allows it (`eager_reason`
+    is None); False runs the same update eagerly on the card too, to
+    compare the two. The CPU runs it eagerly."""
 
     def __init__(
         self,
@@ -228,6 +244,7 @@ class MAPPOCAVs:
         env: Optional[RoadTrafficEnv] = None,
         device: str | torch.device | None = None,
         shard: Shard | None = None,
+        update_graph: bool = True,
     ):
         self.parameters = p = parameters
         self.shard = shard
@@ -323,6 +340,16 @@ class MAPPOCAVs:
                 if best is not None:
                     p.episode_reward_intermediate = float(best)
         self.opt_state = self.optimizer.init(self.parameter_list())
+
+        # The update's form, by configuration: the eager loop where rows or
+        # steps depend on the data or the host reads the loss, else one
+        # program, captured on the card.
+        self.eager_reason = (
+            "sharded" if shard is not None else "prb" if p.is_prb
+            else "debug_numerics" if p.debug_numerics else None
+        )
+        self.update_graph = update_graph and dev.type == "cuda" and self.eager_reason is None
+        self.program: Optional[UpdateProgram] = None
 
     def networks(self) -> tuple:
         """The trainer's networks: policy, critic and, with learned
@@ -503,6 +530,18 @@ class MAPPOCAVs:
         `debug_numerics` a non-finite loss raises before the step. With a
         shard, `mb` holds the rank's rows of a minibatch of `count` rows,
         and the gradients are summed over the ranks before the step."""
+        opt_state, stats = self.gradient_step(
+            nets, mb, entropy_noise, prio_entropy_noise, count,
+            lambda params, grads: self.optimizer.step(params, grads, opt_state),
+        )
+        return opt_state, {k: v.detach() for k, v in stats.items()}
+
+    def gradient_step(self, nets, mb, entropy_noise, prio_entropy_noise, count, step):
+        """The loss of a minibatch (`loss`), its gradients (summed over the
+        ranks with a shard) and `step(params, grads)`, the optimizer's step:
+        the sequence `minibatch_update` and `UpdateProgram.step` share.
+        Returns (what `step` returns, the loss statistics). Under
+        `debug_numerics` a non-finite loss raises before the step."""
         params = self.parameter_list(*nets)
         total, stats = self.loss(nets, mb, entropy_noise, prio_entropy_noise, count)
         if self.parameters.debug_numerics:
@@ -510,28 +549,15 @@ class MAPPOCAVs:
         grads = torch.autograd.grad(total, params)
         if self.shard is not None:
             grads = self.shard.all_reduce_grads(grads)
-        opt_state = self.optimizer.step(params, grads, opt_state)
-        return opt_state, {k: v.detach() for k, v in stats.items()}
+        return step(params, grads), stats
 
-    def train_iteration(self, state: TrainState, draws: IterationDraws | None = None):
-        """Rollout, GAE and the PPO epochs. Returns (state', metrics): the
-        episode-reward metric, the number of done events, the mean step
-        reward, the loss statistics (means over minibatches, then epochs),
-        the filter's solved share when the rollout filters
-        (`cbf_solved_share`) and `seconds_{rollout,gae,update}` (host
-        clock, the card synchronised at each phase's end). With a shard,
-        `draws` are global and the metrics are over every rank's envs."""
-        p, dev, shard = self.parameters, self.device, self.shard
-        nets = state.networks
-        n_mb = self.n_minibatches
-        t0 = time.perf_counter()
-
-        # 1. Collect frames_per_batch = B * T frames.
-        env_state, obs, ep_accum, batch, solved = self.rollout(state, self.local_draws(draws))
-        self._sync()
-        t1 = time.perf_counter()
-
-        # 2. Values and GAE with the critic before this iteration's updates.
+    def frames(self, state: TrainState, batch: Transition):
+        """Values and GAE with the critic before this iteration's updates,
+        and the rollout's frames flattened to [T * B, ...]: (data, the PRB
+        priorities or None). With PRB the data also holds the reward, the
+        next observation and the done flags (the priorities' refresh), and
+        the priorities are over every rank's frames."""
+        p, shard = self.parameters, self.shard
         gamma, lmbda = self.ppo_cfg.gamma, self.ppo_cfg.lmbda
         with torch.no_grad():
             values = state.critic(batch.obs)[..., 0]  # [T, B, N]
@@ -544,10 +570,7 @@ class MAPPOCAVs:
                     batch.reward, state.prio_critic(batch.prio_obs)[..., 0],
                     state.prio_critic(batch.next_obs)[..., 0], batch.done, gamma, lmbda,
                 )
-        self._sync()
-        t2 = time.perf_counter()
 
-        # 3. Epochs of minibatch updates over the flattened frames.
         def flat(x):
             return x.reshape((-1,) + x.shape[2:])
 
@@ -561,7 +584,7 @@ class MAPPOCAVs:
                 prio_log_prob=flat(batch.prio_log_prob), prio_adv=flat(prio_adv),
                 prio_vt=flat(prio_vt),
             )
-        T, B_local = batch.reward.shape[:2]
+        priorities = None
         if p.is_prb:
             priorities = compute_td_error(batch.reward, values, next_values, batch.done,
                                           shard=shard)
@@ -572,8 +595,72 @@ class MAPPOCAVs:
             if shard is not None:  # global frame order t * B + b
                 priorities = shard.all_gather(priorities[None]).permute(1, 0, 2)
             priorities = priorities.reshape(-1)
+        return data, priorities
+
+    def update(self, state: TrainState, data: Dict[str, Tensor],
+               draws: IterationDraws | None = None, priorities: Tensor | None = None):
+        """The iteration's epochs of minibatch updates over `data` (as
+        `frames` gives it), on the networks and optimizer state of `state`
+        in place. Returns (the optimizer state after them, the loss
+        statistics: means over the minibatches, then the epochs)."""
+        if self.eager_reason is None:
+            return self._update_program(state, data, draws)
+        return self._update_loop(state, data, draws, priorities)
+
+    def update_program(self, state: TrainState, data: Dict[str, Tensor]) -> UpdateProgram:
+        """The `UpdateProgram` of the networks and moments of `state` and
+        frames shaped like `data`: built (and on the card captured) once,
+        and again only when those tensors or the frames' layout change."""
+        nets, opt_state = state.networks, state.opt_state
+        prog = self.program
+        if prog is None or prog.key != UpdateProgram.key_of(self, nets, opt_state, data):
+            prog = self.program = UpdateProgram(
+                self, nets, opt_state, data, self.updates_per_iter,
+                data["action"].shape[0] // self.n_minibatches)
+        if self.update_graph and prog.graph is None:
+            prog.begin(data, opt_state.count)
+            prog.capture()
+        return prog
+
+    def _update_program(self, state: TrainState, data, draws):
+        """The update through `update_program`: the host draws the numbers
+        and fills the buffers, the program (a graph replay on the card)
+        does each minibatch."""
+        p, dev = self.parameters, self.device
+        opt_state = state.opt_state
+        n_mb = self.n_minibatches
+        M = data["action"].shape[0]
+        mb_size = M // n_mb
+        prog = self.update_program(state, data)
+        prog.begin(data, opt_state.count)
+        mb_shape = (mb_size,) + data["action"].shape[1:]
+        for e in range(p.num_epochs):
+            perm = (torch.randperm(M, generator=self.generator, device=dev)
+                    if draws is None else draws.permutations[e])
+            for m in range(n_mb):
+                noise = _draw(draws, "entropy_noise", (e, m))
+                if noise is None:
+                    noise = torch.randn(mb_shape, generator=self.generator, device=dev)
+                prio_noise = None
+                if state.prio_policy is not None:
+                    prio_noise = _draw(draws, "priority_entropy_noise", (e, m))
+                    if prio_noise is None:
+                        prio_noise = torch.randn(mb_shape[:-1] + (1,), generator=self.generator,
+                                                 device=dev)
+                prog.run(perm[m * mb_size:(m + 1) * mb_size], noise, prio_noise)
+        opt_state = AdamState(opt_state.count + self.updates_per_iter, prog.mu, prog.nu)
+        return opt_state, prog.loss_stats(p.num_epochs, n_mb)
+
+    def _update_loop(self, state: TrainState, data, draws, priorities):
+        """The update as an eager loop over `minibatch_update`: the sharded,
+        PRB and `debug_numerics` trainers' form."""
+        p, dev, shard = self.parameters, self.device, self.shard
+        nets = state.networks
+        n_mb = self.n_minibatches
         # Frames are indexed t * B + b over every env; a rank holds the
         # frames of its envs at t * B_local + (b - first env).
+        T = p.max_steps
+        B_local = data["action"].shape[0] // T
         B = B_local * (1 if shard is None else shard.world)
         M = T * B
         mb_size = M // n_mb
@@ -629,14 +716,42 @@ class MAPPOCAVs:
                 mb_stats.append(stats)
             epoch_stats.append({k: torch.stack([s[k] for s in mb_stats]).mean()
                                 for k in mb_stats[0]})
+        return opt_state, {k: torch.stack([s[k] for s in epoch_stats]).mean()
+                           for k in epoch_stats[0]}
+
+    def train_iteration(self, state: TrainState, draws: IterationDraws | None = None):
+        """Rollout, GAE and the PPO epochs. Returns (state', metrics): the
+        episode-reward metric, the number of done events, the mean step
+        reward, the loss statistics (means over minibatches, then epochs),
+        the filter's solved share when the rollout filters
+        (`cbf_solved_share`) and `seconds_{rollout,gae,update}` (host
+        clock, the card synchronised at each phase's end). With a shard,
+        `draws` are global and the metrics are over every rank's envs."""
+        p, dev, shard = self.parameters, self.device, self.shard
+        t0 = time.perf_counter()
+
+        # 1. Collect frames_per_batch = B * T frames.
+        env_state, obs, ep_accum, batch, solved = self.rollout(state, self.local_draws(draws))
+        self._sync()
+        t1 = time.perf_counter()
+
+        # 2. Values and GAE with the critic before this iteration's updates.
+        data, priorities = self.frames(state, batch)
+        self._sync()
+        t2 = time.perf_counter()
+
+        # 3. Epochs of minibatch updates over the flattened frames.
+        opt_state, loss_stats = self.update(state, data, draws, priorities)
+        if state.opt_state.mu is self.opt_state.mu:  # the trainer's moments moved in place
+            self.opt_state = opt_state
         self._sync()
         t3 = time.perf_counter()
 
         # 4. Mean episodic reward over the done events of the rollout.
+        M = batch.reward.shape[0] * batch.reward.shape[1] * (1 if shard is None else shard.world)
         done_f = batch.done[..., None].to(batch.reward.dtype)  # [T, B, 1]
         n_done = done_f.sum()
         ep_rew_sum = (batch.ep_reward_at_done * done_f).sum()
-        loss_stats = {k: torch.stack([s[k] for s in epoch_stats]).mean() for k in epoch_stats[0]}
         if shard is None:
             reward_mean = batch.reward.mean()
             solved_share = None if solved is None else torch.stack(

@@ -15,11 +15,22 @@ step:
 - the learning rate `lr_min + (lr - lr_min) * (1 - (count //
   updates_per_iter) / n_iters)`, read at the update count before it is
   incremented.
+
+Both run in PyTorch's multi-tensor idiom (`torch._foreach_*` over the
+parameter list) and update the parameters and the moments in place, so
+their addresses stay fixed and a captured CUDA graph can replay the step
+(`rl/update_program.py`). The arithmetic is that of one parameter at a
+time, in the same order: `m = (1 - b1) g + b1 m` as two products and a
+sum, the global norm as Python's left-to-right sum of the per-tensor sums
+of squares. The step's three scalars (the step size `-lr(count)` and the
+two bias corrections) are host floats in `step`, or 0-dim tensors of a
+device table (`schedule`) in a captured step, which reads them at run
+time.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -29,7 +40,7 @@ B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults, as the JAX chain uses t
 
 class AdamState(NamedTuple):
     count: int  # updates applied so far
-    mu: List[Tensor]
+    mu: List[Tensor]  # updated in place by `step`
     nu: List[Tensor]
 
 
@@ -49,22 +60,45 @@ class Adam:
             0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
         )
 
+    def scalars(self, count: int) -> Tuple[float, float, float]:
+        """(step size, 1 - b1^k, 1 - b2^k) of the update at `count`, k =
+        count + 1, as host floats."""
+        k = count + 1
+        return -self.learning_rate(count), 1 - B1**k, 1 - B2**k
+
+    def schedule(self, first: int, n: int, dtype=torch.float32) -> Tensor:
+        """The scalars of the updates at counts first .. first + n - 1 as an
+        [n, 3] host tensor of `dtype`, each computed as `scalars` computes
+        it and then rounded once: the table a captured step reads its row
+        of."""
+        return torch.tensor([self.scalars(c) for c in range(first, first + n)], dtype=dtype)
+
     @torch.no_grad()
     def step(self, params: Sequence[Tensor], grads: Sequence[Tensor], state: AdamState) -> AdamState:
-        """Apply one Adam update to `params` in place; returns the new
-        state. Runs on the parameters' device without a host sync."""
-        k = state.count + 1
-        bc1, bc2 = 1 - B1**k, 1 - B2**k
-        step_size = -self.learning_rate(state.count)
-        mu, nu = [], []
-        for p, g, m, v in zip(params, grads, state.mu, state.nu):
-            m = (1 - B1) * g + B1 * m
-            v = (1 - B2) * (g * g) + B2 * v
-            u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
-            p.add_(step_size * u)
-            mu.append(m)
-            nu.append(v)
-        return AdamState(k, mu, nu)
+        """Apply one update to `params` and the moments in place; returns
+        the state at the next count. Runs on the parameters' device without
+        a host sync."""
+        self.apply(params, grads, state.mu, state.nu, *self.scalars(state.count))
+        return AdamState(state.count + 1, state.mu, state.nu)
+
+    @torch.no_grad()
+    def apply(self, params, grads, mu, nu, step_size, bc1, bc2) -> None:
+        """One Adam update of `params`, `mu` and `nu` in place; the three
+        scalars are floats or 0-dim tensors."""
+        g1 = torch._foreach_mul(grads, 1 - B1)
+        torch._foreach_mul_(mu, B1)
+        torch._foreach_add_(mu, g1)  # (1 - b1) g + b1 m
+        g2 = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(g2, 1 - B2)
+        torch._foreach_mul_(nu, B2)
+        torch._foreach_add_(nu, g2)  # (1 - b2) g^2 + b2 v
+        u = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, EPS)
+        torch._foreach_div_(u, den)
+        torch._foreach_mul_(u, step_size)
+        torch._foreach_add_(params, u)
 
 
 class ClippedAdam(Adam):
@@ -89,9 +123,12 @@ class ClippedAdam(Adam):
         return self.lr_min + (self.lr - self.lr_min) * frac
 
     @torch.no_grad()
-    def step(self, params: Sequence[Tensor], grads: Sequence[Tensor], state: AdamState) -> AdamState:
+    def apply(self, params, grads, mu, nu, step_size, bc1, bc2) -> None:
         """Clip the gradients by their global norm, then one Adam update."""
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        sq = torch._foreach_mul(grads, grads)
+        norm = torch.sqrt(sum(s.sum() for s in sq))
         keep = norm < self.max_grad_norm
-        grads = [torch.where(keep, g, g / norm * self.max_grad_norm) for g in grads]
-        return super().step(params, grads, state)
+        scaled = torch._foreach_div(grads, norm)
+        torch._foreach_mul_(scaled, self.max_grad_norm)
+        grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
+        super().apply(params, grads, mu, nu, step_size, bc1, bc2)

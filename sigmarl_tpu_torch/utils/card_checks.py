@@ -2,8 +2,9 @@
 (`tests/test_torch_gpu.py`) share: K1's inputs with near-zero CLF rows,
 one testing-mode, CLF-filtered, fp16-parity step on the card against the
 same step on the CPU, the challenge buffer's record and replay steps on
-the card against the CPU, and a step whose reset spawn is compacted on
-the card against the CPU. They need a CUDA device."""
+the card against the CPU, a step whose reset spawn is compacted on
+the card against the CPU, and the trainer's update as a graph replay
+against the same update run eagerly. They need a CUDA device."""
 
 from __future__ import annotations
 
@@ -298,6 +299,117 @@ def iteration_draws(tr, generator: torch.Generator):
         entropy_noise=torch.randn((E, tr.n_minibatches, M // tr.n_minibatches, N, 2),
                                   generator=generator, device=dev),
     )
+
+
+def update_draws(tr, generator: torch.Generator):
+    """The update's random numbers of one iteration of trainer `tr` (the
+    epochs' permutations and the minibatches' entropy noise, and the
+    priority loss's under learned priority), drawn from `generator` on its
+    device and moved to the trainer's."""
+    from sigmarl_tpu_torch.rl.mappo_cavs import IterationDraws
+
+    p, N = tr.parameters, tr.env.cfg.n_agents
+    E, n_mb, dev = p.num_epochs, tr.n_minibatches, generator.device
+    M = p.max_steps * tr.env.cfg.batch_dim
+    mb = M // n_mb
+    prio = tr.prio_policy_net is not None
+    return IterationDraws(
+        action_noise=None, reset_draws=None,
+        permutations=torch.stack([torch.randperm(M, generator=generator, device=dev)
+                                  for _ in range(E)]),
+        entropy_noise=torch.randn((E, n_mb, mb, N, 2), generator=generator, device=dev),
+        priority_entropy_noise=torch.randn((E, n_mb, mb, N, 1), generator=generator,
+                                           device=dev) if prio else None,
+    ).to(tr.device)
+
+
+def update_graph_vs_eager(graph_tr, eager_tr, state, generator: torch.Generator,
+                          sync_mode: str = "warn") -> dict:
+    """One rollout of `graph_tr` (a trainer on the card that captures its
+    update) from `state`, then the update of the same frames with the same
+    draws (`update_draws` from `generator`) twice: by `eager_tr` (built
+    from the same `Parameters` with `update_graph=False`), its networks
+    and moments first set to those of `state`, and by `graph_tr`'s graph
+    replays. The program is captured before the replays are watched for
+    host syncs: counted (`sync_mode` "warn", `device.host_syncs`) or
+    raised on ("error"). Returns equal (every parameter, moment and loss
+    statistic bit for bit), max_abs_diff, the seconds of each update, the
+    syncs, the loss statistics and the graph trainer's next state."""
+    import time
+
+    from sigmarl_tpu_torch.device import host_syncs
+    from sigmarl_tpu_torch.rl.mappo_cavs import TrainState
+    from sigmarl_tpu_torch.rl.optim import AdamState
+
+    env_state, obs, ep_accum, batch, _ = graph_tr.rollout(state)
+    data, _ = graph_tr.frames(state, batch)
+    draws = update_draws(graph_tr, generator)
+    e_opt = AdamState(state.opt_state.count, eager_tr.opt_state.mu, eager_tr.opt_state.nu)
+    with torch.no_grad():
+        for a, b in zip(eager_tr.parameter_list() + e_opt.mu + e_opt.nu,
+                        graph_tr.parameter_list(*state.networks) + state.opt_state.mu
+                        + state.opt_state.nu):
+            a.copy_(b)
+    nets = eager_tr.networks()
+    e_state = dataclasses.replace(state, policy=nets[0], critic=nets[1], opt_state=e_opt,
+                                  prio_policy=nets[2] if len(nets) > 2 else None,
+                                  prio_critic=nets[3] if len(nets) > 2 else None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e_opt, e_stats = eager_tr.update(e_state, data, draws)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+
+    graph_tr.update_program(state, data)  # captured here, outside the watch
+    out, start = [], []
+
+    def replays():
+        start.append(time.perf_counter())
+        out.append(graph_tr.update(state, data, draws))
+
+    torch.cuda.synchronize()
+    if sync_mode == "error":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replays()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = []
+    else:
+        syncs = host_syncs(replays)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - start[0]
+    g_opt, g_stats = out[0]
+    mine = graph_tr.parameter_list(*state.networks) + g_opt.mu + g_opt.nu
+    theirs = eager_tr.parameter_list() + e_opt.mu + e_opt.nu
+    equal = all(torch.equal(a, b) for a, b in zip(mine, theirs)) and all(
+        torch.equal(g_stats[k], e_stats[k]) for k in g_stats)
+    diff = max(float((a - b).detach().abs().max()) for a, b in zip(mine, theirs))
+    nxt = TrainState(
+        policy=state.policy, critic=state.critic, opt_state=g_opt, env_state=env_state,
+        obs=obs, ep_reward_accum=ep_accum, iteration=state.iteration + 1,
+        prio_policy=state.prio_policy, prio_critic=state.prio_critic,
+    )
+    return dict(equal=equal, max_abs_diff=diff, eager_s=eager_s, graph_s=graph_s, syncs=syncs,
+                stats={k: float(v) for k, v in g_stats.items()}, state=nxt)
+
+
+def launches_per_update(tr) -> int | None:
+    """The CUDA kernels, copies and fills of one minibatch update: one
+    eager run of the trainer's `UpdateProgram.step` under
+    `torch.profiler` (None where the profiler sees no device activity).
+    The step changes the networks: call it when they are no longer
+    compared."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.program.row.zero_()  # the step reads the table's first row
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.program.step()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or None
 
 
 def _flat_parameters(state) -> torch.Tensor:

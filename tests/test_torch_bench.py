@@ -117,3 +117,19 @@ def test_programs_default_to_cuda_and_raise_without_a_card(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main([])
+
+
+def test_census_parity_follows_the_census_and_finds_the_first_parting():
+    """`utils/census_parity.py` rolls out the census's instances (its
+    counted steps are `census`'s counts on the same device), a record
+    against itself never parts, and a record with one env's done flag
+    flipped at step 3 parts there, at that env."""
+    from sigmarl_tpu_torch.utils import census_parity
+
+    rec = census_parity.rollout_record(4, 1, 3, "cpu")
+    assert census_parity.counted(rec) == bench.census(4, steps=3, T=1, device="cpu")["counts"]
+    assert census_parity.parting(rec, rec)["first_parting_step"] is None
+    other = dict(rec, done=rec["done"].copy())
+    other["done"][2, 1] = ~other["done"][2, 1]
+    p = census_parity.parting(rec, other)
+    assert p["first_parting_step"] == 3 and p["envs"] == [1] and p["max_pos_gap_m"] == 0.0

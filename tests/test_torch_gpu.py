@@ -9,6 +9,7 @@ it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -456,6 +457,65 @@ def test_training_iteration_launches_on_the_card(tmp_path, mode):
     assert pseudo_distance_stencil.launches - k2 == T
     assert np.isfinite(float(m["loss_objective"])) and np.isfinite(float(m["loss_critic"]))
     assert bool(torch.isfinite(state.obs).all()) and state.opt_state.count == 4
+
+
+@pytest.mark.parametrize("config", ["learning_curve", "learned_priority"])
+def test_update_graph_replays_equal_the_eager_update(tmp_path, config):
+    """The learning curve's configuration (cpm_mixed, N=4, B=128, 30
+    epochs of minibatch 512, observation noise on, entropy_eps 4e-3) at
+    T=8, and the same with learned priority (four networks): two
+    iterations, each rolled out once and updated twice from the same
+    frames and draws, by the trainer's CUDA graph and by the same program
+    run eagerly (`update_graph=False`). Parameters, moments and loss
+    statistics equal bit for bit, and the replays run under
+    `torch.cuda.set_sync_debug_mode("error")`: no host sync."""
+    from sigmarl_tpu_torch import learning_curve
+    from sigmarl_tpu_torch.rl.mappo_cavs import MAPPOCAVs
+    from sigmarl_tpu_torch.utils.card_checks import update_graph_vs_eager
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    extra = dict(is_using_prioritized_marl=True, prioritization_method="marl")
+    p = learning_curve.parameters(2, 0, "cuda", str(tmp_path) + "/", max_steps=8,
+                                  **(extra if config == "learned_priority" else {}))
+    graph_tr, eager_tr = MAPPOCAVs(p), MAPPOCAVs(p, update_graph=False)
+    assert graph_tr.update_graph and not eager_tr.update_graph
+    assert graph_tr.n_minibatches == 2 and graph_tr.updates_per_iter == 60
+    state = graph_tr.initial_state()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for i in range(2):
+        r = update_graph_vs_eager(graph_tr, eager_tr, state, gen, sync_mode="error")
+        assert r["equal"], (i, r["max_abs_diff"])
+        assert all(np.isfinite(v) for v in r["stats"].values())
+        state = r["state"]
+    assert state.opt_state.count == 120 and graph_tr.program.graph is not None
+
+
+def test_census_on_the_card_counts_the_cpus_rollout():
+    """`bench.py --census` at a small size (B=16, N=15, one warm-up step
+    from the all-zero state, 4 counted steps): the census draws from a
+    host generator, so the card starts from the CPU's instances. The first
+    step resets every env: the spawns' integer fields (paths, points,
+    flags) equal bit for bit; the resetting envs of every counted step
+    equal, and the card repeats its own census. Past this the two part:
+    after 4 warm-up steps at the 8th step, where one agent's lanelet test
+    differs with positions 1.55 mm apart, as the filter's float32 solve
+    turns rounding differences into millimetres; two CPU builds of
+    PyTorch part at the 4th (`utils/census_parity.py`)."""
+    from sigmarl_tpu_torch import bench
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    first = {}
+    for d in ("cuda", "cpu"):
+        env, cbf, policy, gen, state, obs = bench.main_path(16, 15, d, draws_on="cpu")
+        (s,), *_ = bench.rollout_chunk(env, cbf, policy, [state], [obs], [gen], 1)
+        first[d] = {f.name: getattr(s, f.name).cpu() for f in dataclasses.fields(s)
+                    if not getattr(s, f.name).is_floating_point()}
+    for k, v in first["cpu"].items():
+        assert torch.equal(first["cuda"][k], v), k
+    card, again, host = (bench.census(16, steps=4, T=1, device=d) for d in ("cuda", "cuda", "cpu"))
+    assert card["counts"] == again["counts"] == host["counts"] and sum(host["counts"]) > 0
 
 
 def test_main_training_on_the_card(tmp_path, capsys):

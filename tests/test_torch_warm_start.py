@@ -107,21 +107,30 @@ def _port_cons(cons, dtype):
     return tqp.StructuredConstraintSet(**kw)
 
 
+@pytest.fixture(scope="module")
+def jax_warm_solution(fixture):
+    """JAX's constraint set at the fixture's reset state, its nominal
+    input and three controls: JAX's warm solution and two perturbations of
+    it (computed once for both dtypes below)."""
+    jenv, jwarm, _, warm, _, act, jstate = fixture
+    jact = jnp.asarray(act.numpy())
+    cons, u_nom, _, _ = jwarm.assemble(jstate, jact)
+    u_star = np.asarray(jwarm.filter_actions(jstate, jact, u_init=jstate.cbf_u_prev).u_star)
+    rng = np.random.default_rng(0)
+    return cons, u_nom, [u_star, u_star + rng.normal(0, 0.3, u_star.shape),
+                         u_star + rng.normal(0, 3.0, u_star.shape)]
+
+
 @pytest.mark.parametrize("dtype, rtol", [(torch.float32, 1e-6), (torch.float64, 1e-9)])
-def test_objective_at_no_iteration_matches_jax(fixture, dtype, rtol):
+def test_objective_at_no_iteration_matches_jax(fixture, jax_warm_solution, dtype, rtol):
     """The evaluation both certificates make, `solve_structured_qp` with
     n_iters=0 (F of the better of clip(u_nom) and clip(u)), on JAX's
     constraint set at the fixture's reset state: the port's F equals
     JAX's to a relative 1e-6 in float32 and 1e-9 in float64, at JAX's
     warm solution and at controls perturbed from it (some of which lose
     to the nominal start)."""
-    jenv, jwarm, _, warm, _, act, jstate = fixture
-    jact = jnp.asarray(act.numpy())
-    cons, u_nom, _, _ = jwarm.assemble(jstate, jact)
-    u_star = np.asarray(jwarm.filter_actions(jstate, jact, u_init=jstate.cbf_u_prev).u_star)
-    rng = np.random.default_rng(0)
-    candidates = [u_star, u_star + rng.normal(0, 0.3, u_star.shape),
-                  u_star + rng.normal(0, 3.0, u_star.shape)]
+    warm = fixture[3]
+    cons, u_nom, candidates = jax_warm_solution
     w_u = (warm.cfg.w_u_acc, warm.cfg.w_u_steer)
     lo, hi = (warm.a_min, warm.rate_min), (warm.a_max, warm.rate_max)
     jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
