@@ -1,0 +1,7 @@
+"""The trainer's own `seconds_update` per iteration, averaged over the
+window's iterations."""
+
+
+def read(layer):
+    t = layer.get("train")
+    return None if not t or not t["iterations"] else t["update_s"] / t["iterations"]
