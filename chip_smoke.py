@@ -664,8 +664,6 @@ def grouped_phase(env, policy, gen, smi) -> dict:
     import torch
 
     from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, zero_state
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
     from sigmarl_tpu_torch.safety.grouping import group_agents_k_nearest, same_group_mask
 
     cbf = CBFSafetyFilter(
@@ -683,15 +681,12 @@ def grouped_phase(env, policy, gen, smi) -> dict:
     print(f"grouped input: {cross:.4f} of the pairs cross groups")
     err = check_qp(qp_args, qp_static, " grouped")
 
-    newton_solve.launches = 0
-    pseudo_distance_stencil.launches = 0
-    torch.cuda.synchronize()
+    zero_launch_counts()
     t0 = time.perf_counter()
     state, obs, finite, solved = rollout(env, cbf, policy, gen, state, obs, TIMED_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"qp_newton": newton_solve.launches,
-                "boundary_stencil": pseudo_distance_stencil.launches}
+    launches = launch_counts()
     print(f"grouped path: {TIMED_STEPS} steps, launches {launches}, solved share {solved:.6f}, "
           f"{TIMED_STEPS * BATCH / elapsed:.1f} env-steps/s on {smi}")
     check(finite, "non-finite obs, reward or u* on the grouped path")
@@ -913,8 +908,6 @@ def informed_training_phase(dev, smi, workdir) -> list:
     import torch
 
     from sigmarl_tpu_torch import MAPPOCAVs, Parameters
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
     from sigmarl_tpu_torch.rl import checkpoint as ckpt
     from sigmarl_tpu_torch.rl.networks import to_jax_params
 
@@ -925,16 +918,15 @@ def informed_training_phase(dev, smi, workdir) -> list:
     seen = []
 
     def progress(i, m):
-        seen.append((m, newton_solve.launches, pseudo_distance_stencil.launches))
+        seen.append((m, launch_counts()))
 
-    newton_solve.launches = 0
-    pseudo_distance_stencil.launches = 0
+    zero_launch_counts()
     _, decision, optim, *_ = tr.train(progress_callback=progress)
     torch.cuda.synchronize()
-    per_iter, k1_prev, k2_prev = [], 0, 0
-    for i, (m, k1, k2) in enumerate(seen):
-        per_iter.append({"qp_newton": k1 - k1_prev, "boundary_stencil": k2 - k2_prev})
-        k1_prev, k2_prev = k1, k2
+    per_iter, prev = [], {"qp_newton": 0, "boundary_stencil": 0}
+    for i, (m, now) in enumerate(seen):
+        per_iter.append({k: now[k] - prev[k] for k in now})
+        prev = now
         print_iteration("CBF-informed training", i, m, p.frames_per_batch, smi)
         check(_finite_losses(m), f"non-finite loss or reward in CBF-informed iteration {i + 1}")
     print(f"CBF-informed training: launches per iteration {per_iter}")
@@ -1015,8 +1007,6 @@ def filtered_training_phase(dev, smi, workdir) -> dict:
     import torch
 
     from sigmarl_tpu_torch import MAPPOCAVs, Parameters, tanh_normal_sample
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
 
     out = {}
     for name, kw in (
@@ -1027,12 +1017,10 @@ def filtered_training_phase(dev, smi, workdir) -> dict:
                        where_to_save=os.path.join(workdir, "filtered") + "/")
         tr = MAPPOCAVs(p)
         state = tr.initial_state()
-        newton_solve.launches = 0
-        pseudo_distance_stencil.launches = 0
+        zero_launch_counts()
         state, m = tr.train_iteration(state)
         torch.cuda.synchronize()
-        launches = {"qp_newton": newton_solve.launches,
-                    "boundary_stencil": pseudo_distance_stencil.launches}
+        launches = launch_counts()
         solved = float(m["cbf_solved_share"])
         print_iteration(f"CBF-filtered training ({name}, N={p.n_agents}, B={p.num_vmas_envs})", 0,
                         m, p.frames_per_batch, smi)
@@ -1235,8 +1223,6 @@ def one_iteration(p, smi, what: str):
     import torch
 
     from sigmarl_tpu_torch import MAPPOCAVs
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
 
     tr = MAPPOCAVs(p)
     state = tr.initial_state()
@@ -1244,13 +1230,10 @@ def one_iteration(p, smi, what: str):
     calls, handle = rollout_policy_calls(tr.policy_net)
     flags, unwrap = recording_ranks()
     try:
-        newton_solve.launches = 0
-        pseudo_distance_stencil.launches = 0
-        torch.cuda.synchronize()
+        zero_launch_counts()
         state, m = tr.train_iteration(state)
         torch.cuda.synchronize()
-        launches = {"qp_newton": newton_solve.launches,
-                    "boundary_stencil": pseudo_distance_stencil.launches}
+        launches = launch_counts()
     finally:
         handle.remove()
         unwrap()
@@ -1395,22 +1378,23 @@ WINDOW_STEPS = 32
 CERT_STEPS = 20
 
 
-def launch_counts() -> dict:
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
+_LAUNCH_BASE = {}  # the kernels' launch counts at the last `zero_launch_counts`
 
-    return {"qp_newton": newton_solve.launches, "boundary_stencil": pseudo_distance_stencil.launches}
+
+def launch_counts() -> dict:
+    """The kernels' launches since `zero_launch_counts()`."""
+    from sigmarl_tpu_torch.ops import launch_counts as total
+
+    return total(since=_LAUNCH_BASE or None)
 
 
 def zero_launch_counts() -> None:
     import torch
 
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
+    from sigmarl_tpu_torch.ops import launch_counts as total
 
     torch.cuda.synchronize()
-    newton_solve.launches = 0
-    pseudo_distance_stencil.launches = 0
+    _LAUNCH_BASE.update(total())
 
 
 def reset_branches(env) -> tuple:
@@ -2082,8 +2066,6 @@ def main() -> int:
         return 1
     port = import_port()
     from sigmarl_tpu_torch.ops import build
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
 
     t_start = time.perf_counter()
     dev = "cuda"
@@ -2113,15 +2095,12 @@ def main() -> int:
 
     warm_resets = reset_branches(env)
     zero_reset_branches(env)
-    newton_solve.launches = 0
-    pseudo_distance_stencil.launches = 0
-    torch.cuda.synchronize()
+    zero_launch_counts()
     t0 = time.perf_counter()
     state, obs, finite, solved = rollout(env, cbf, policy, gen, state, obs, TIMED_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"qp_newton": newton_solve.launches,
-                "boundary_stencil": pseudo_distance_stencil.launches}
+    launches = launch_counts()
     main_resets = reset_branches(env)
     print(f"main path: {TIMED_STEPS} steps, launches {launches}, solved share {solved:.6f}")
     print(f"main path reset steps: {fmt_branches(main_resets, TIMED_STEPS)} of the timed "

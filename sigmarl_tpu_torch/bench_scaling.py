@@ -72,6 +72,7 @@ from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.device import device_line, resolve_device, synchronize
 from sigmarl_tpu_torch.env.env import make_env
 from sigmarl_tpu_torch.env.structs import zero_state
+from sigmarl_tpu_torch.ops import launch_counts
 from sigmarl_tpu_torch.parallel.mesh import Shard, gather_world_state, initialize_distributed
 from sigmarl_tpu_torch.rl.networks import PolicyNet, tanh_normal_sample
 from sigmarl_tpu_torch.safety.cbf_qp import CBFConfig, CBFSafetyFilter
@@ -96,14 +97,6 @@ class CountedShard(Shard):
     def all_gather(self, x):
         self.calls[0] += 1
         return super().all_gather(x)
-
-
-def _launches() -> dict:
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
-
-    return {"qp_newton": newton_solve.launches,
-            "boundary_stencil": pseudo_distance_stencil.launches}
 
 
 def workload(cfg: dict, device, shard=None):
@@ -177,7 +170,7 @@ def scaling_rank(shard, device, cfg: dict, draws=None) -> dict:
         if shard is not None:
             dist.barrier()
 
-    launches0 = _launches()
+    launches0 = launch_counts()
     t0 = time.perf_counter()
     chunk()
     synchronize(dev)
@@ -194,7 +187,7 @@ def scaling_rank(shard, device, cfg: dict, draws=None) -> dict:
     barrier()
     wall = time.perf_counter() - t0
     collectives = (shard.calls[0] - calls0) if shard is not None else 0
-    launches = {k: v - launches0[k] for k, v in _launches().items()}
+    launches = launch_counts(since=launches0)
     chunk_s = [_seconds(a, b) for a, b in zip(stamps, stamps[1:])]
 
     if shard is not None:

@@ -28,6 +28,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.core.dynamics import BicycleParams, command_step
@@ -111,6 +112,7 @@ class RoadTrafficEnv:
         )
         return state, obs
 
+    @trace.span("env_step")
     def step(
         self,
         state: WorldState,
@@ -133,85 +135,89 @@ class RoadTrafficEnv:
         prev_pos = latest_state_record(state)[..., 0:2]
         prev_short_term = state.short_term
 
-        # 1. dynamics
-        pos, rot, speed, steering, sideslip, vel = command_step(
-            self.bicycle, state.pos, state.rot, state.speed, state.steering, actions, cfg.dt
-        )
-        state = replace_state(
-            state,
-            pos=pos, rot=rot, speed=speed, steering=steering, sideslip=sideslip, vel=vel,
-            step=state.step + 1,
-            nominal_action=actions if not cfg.is_using_cbf else state.nominal_action,
-            applied_action=actions,
-        )
-        # 2. geometry / collisions
-        state = update_geometry(cfg, tables, state)
-        # 3. rewards
-        reward, rew_info = compute_rewards(
-            cfg, state, prev_pos, prev_short_term, self.weighting_ref
-        )
-        if cfg.debug_numerics:
-            assert_finite(reward, "reward")
-        # 4. record + refresh windows
-        state = push_state_buffer(state)
-        state = update_short_term_paths(cfg, tables, state)
-        # 5. done + resets
-        done, reset_mask = self._done_and_reset_mask(state)
-        info = dict(rew_info)
-        info.update(
-            pos=state.pos,
-            rot=state.rot,
-            vel=state.vel,
-            distance_ref=state.d_ref,
-            distance_left_b=state.d_left.min(-1).values,
-            distance_right_b=state.d_right.min(-1).values,
-            is_collision_with_agents=state.coll_agents.any(-1),
-            is_collision_with_lanelets=state.coll_lanelets,
-            is_reach_goal=state.coll_exit,
-            path_id=state.path_id,
-            nominal_action=state.nominal_action,
-            applied_action=state.applied_action,
-            terminal_step=state.step,
-        )
-        if cfg.is_challenging_initial_state_buffer:
-            record_u = None if reset_draws is None else reset_draws.record_u
-            if record_u is None:
-                record_u = uniform((), generator, self.device)
-            state, n_recorded = record_challenging_states(cfg, state, record_u, self.shard)
-            self.challenge_counts[0] += n_recorded
-        # The host reads how many envs reset (one device sync per step) and
-        # runs the reset only if any does: compacted where they fit the
-        # slots, else at full width. Sharded, the count is over every
-        # rank's envs (the reset also pushes every env's state buffer once
-        # more), and this rank's envs take the compacted draws' rows after
-        # the lower ranks' resetting envs.
-        n_reset = reset_mask.any(-1).sum().reshape(1)
-        if self.shard is None:
-            counts = [int(n_reset)]
-        else:
-            counts = self.shard.all_gather(n_reset).tolist()
-        n_total = sum(counts)
-        if n_total > 0:
-            self.reset_steps += 1
-            slots = compact_slots(self.global_batch, cfg.is_challenging_initial_state_buffer)
-            compact = None
-            if n_total <= slots:
-                rank = 0 if self.shard is None else self.shard.rank
-                compact = (sum(counts[:rank]), counts[rank])
-                self.compact_reset_steps += 1
+        with trace.span("env_step.dynamics"):
+            pos, rot, speed, steering, sideslip, vel = command_step(
+                self.bicycle, state.pos, state.rot, state.speed, state.steering, actions, cfg.dt
+            )
+            state = replace_state(
+                state,
+                pos=pos, rot=rot, speed=speed, steering=steering, sideslip=sideslip, vel=vel,
+                step=state.step + 1,
+                nominal_action=actions if not cfg.is_using_cbf else state.nominal_action,
+                applied_action=actions,
+            )
+        with trace.span("env_step.geometry"):
+            state = update_geometry(cfg, tables, state)
+        with trace.span("env_step.rewards"):
+            reward, rew_info = compute_rewards(
+                cfg, state, prev_pos, prev_short_term, self.weighting_ref
+            )
+            if cfg.debug_numerics:
+                assert_finite(reward, "reward")
+        with trace.span("env_step.paths"):  # record + refresh windows
+            state = push_state_buffer(state)
+            state = update_short_term_paths(cfg, tables, state)
+        with trace.span("env_step.done"):
+            done, reset_mask = self._done_and_reset_mask(state)
+            info = dict(rew_info)
+            info.update(
+                pos=state.pos,
+                rot=state.rot,
+                vel=state.vel,
+                distance_ref=state.d_ref,
+                distance_left_b=state.d_left.min(-1).values,
+                distance_right_b=state.d_right.min(-1).values,
+                is_collision_with_agents=state.coll_agents.any(-1),
+                is_collision_with_lanelets=state.coll_lanelets,
+                is_reach_goal=state.coll_exit,
+                path_id=state.path_id,
+                nominal_action=state.nominal_action,
+                applied_action=state.applied_action,
+                terminal_step=state.step,
+            )
+            if cfg.is_challenging_initial_state_buffer:
+                record_u = None if reset_draws is None else reset_draws.record_u
+                if record_u is None:
+                    record_u = uniform((), generator, self.device)
+                state, n_recorded = record_challenging_states(cfg, state, record_u, self.shard)
+                self.challenge_counts[0] += n_recorded
+            # The host reads how many envs reset (one device sync per step)
+            # and runs the reset only if any does: compacted where they fit
+            # the slots, else at full width. Sharded, the count is over
+            # every rank's envs (the reset also pushes every env's state
+            # buffer once more), and this rank's envs take the compacted
+            # draws' rows after the lower ranks' resetting envs.
+            n_reset = reset_mask.any(-1).sum().reshape(1)
+            if self.shard is None:
+                counts = [int(n_reset)]
             else:
-                self.full_reset_steps += 1
-            if reset_draws is None:
-                reset_draws = ResetDraws.sample(
-                    cfg, generator, self.device, state.cb_valid,
-                    compact_slots=slots if compact else 0, full=compact is None)
-            state = apply_reset(cfg, tables, state, reset_mask, reset_draws,
-                                replay_count=self.challenge_counts[1:], compact=compact)
-        # 6. observation of the (possibly reset) state; the history slots of
-        # the agents just reset are refilled with the new episode's features.
-        obs, state = observe_with_history(
-            cfg, tables, state, reset_mask=reset_mask, noise=obs_noise, generator=generator
-        )
+                counts = self.shard.all_gather(n_reset).tolist()
+            trace.count_sync(n_reset.device)
+            n_total = sum(counts)
+        if n_total > 0:
+            with trace.span("env_step.reset"):
+                self.reset_steps += 1
+                slots = compact_slots(self.global_batch, cfg.is_challenging_initial_state_buffer)
+                compact = None
+                if n_total <= slots:
+                    rank = 0 if self.shard is None else self.shard.rank
+                    compact = (sum(counts[:rank]), counts[rank])
+                    self.compact_reset_steps += 1
+                else:
+                    self.full_reset_steps += 1
+                if reset_draws is None:
+                    reset_draws = ResetDraws.sample(
+                        cfg, generator, self.device, state.cb_valid,
+                        compact_slots=slots if compact else 0, full=compact is None)
+                state = apply_reset(cfg, tables, state, reset_mask, reset_draws,
+                                    replay_count=self.challenge_counts[1:], compact=compact)
+        # The observation of the (possibly reset) state; the history slots
+        # of the agents just reset are refilled with the new episode's
+        # features.
+        with trace.span("env_step.observe"):
+            obs, state = observe_with_history(
+                cfg, tables, state, reset_mask=reset_mask, noise=obs_noise, generator=generator
+            )
         return state, obs, reward, done, info
 
     def reset_predefined(

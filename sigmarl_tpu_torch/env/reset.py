@@ -26,6 +26,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.device import constant, uniform
 from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state, zero_state
@@ -206,19 +207,21 @@ def spawn_positions(
     b_idx = torch.arange(B, device=prev_pos.device)
     choices = []
     for n in range(N):
-        c_pos = cand_pos[:, n]  # [B, T, 2]
-        diff = c_pos[:, :, None, :] - placed_pos[:, None, :, :]  # [B, T, N, 2]
-        dist2 = (diff * diff).sum(-1)
-        dist2 = torch.where(placed_mask[:, None, :], dist2, torch.full_like(dist2, float("inf")))
-        feasible = dist2.min(-1).values >= min_d2  # [B, T]
-        # First feasible candidate (argmax of the first True), else the last.
-        first = torch.argmax(feasible.to(torch.int32), dim=-1)
-        choice = torch.where(feasible.any(-1), first, torch.full_like(first, T - 1))
-        pos_n = c_pos[b_idx, choice]
-        pos_n = torch.where(reset_mask[:, n, None], pos_n, prev_pos[:, n])
-        placed_pos[:, n] = pos_n
-        placed_mask[:, n] = True
-        choices.append(choice)
+        with trace.span(".agent"):  # one agent placed; agents go in turn
+            c_pos = cand_pos[:, n]  # [B, T, 2]
+            diff = c_pos[:, :, None, :] - placed_pos[:, None, :, :]  # [B, T, N, 2]
+            dist2 = (diff * diff).sum(-1)
+            dist2 = torch.where(placed_mask[:, None, :], dist2,
+                                torch.full_like(dist2, float("inf")))
+            feasible = dist2.min(-1).values >= min_d2  # [B, T]
+            # First feasible candidate (argmax of the first True), else the last.
+            first = torch.argmax(feasible.to(torch.int32), dim=-1)
+            choice = torch.where(feasible.any(-1), first, torch.full_like(first, T - 1))
+            pos_n = c_pos[b_idx, choice]
+            pos_n = torch.where(reset_mask[:, n, None], pos_n, prev_pos[:, n])
+            placed_pos[:, n] = pos_n
+            placed_mask[:, n] = True
+            choices.append(choice)
     choice = torch.stack(choices, dim=1)[..., None]  # [B, N, 1]
     path_id = torch.gather(cand_path, 2, choice)[..., 0]
     point_id = torch.gather(cand_point, 2, choice)[..., 0]
@@ -282,64 +285,69 @@ def apply_reset(
     in one process); the rest of the reset stays at full width."""
     B, N = state.pos.shape[:2]
     dev = state.pos.device
-    full_env_reset = reset_mask.all(-1)
-    new_scenario = _sample_scenario_ids(cfg, draws, B, dev)
-    # Full resets draw a fresh scenario group; partial resets keep it.
-    scenario_id_env = torch.where(full_env_reset, new_scenario, state.scenario_id[:, 0])
-    if compact is not None:
-        pos, rot, path_id, point_id = _spawn_positions_compact(
-            cfg, tables, draws, scenario_id_env, state.pos, reset_mask, *compact
-        )
-    else:
-        if draws.path_u is None or draws.point_u is None:
-            raise ValueError("a full-width reset needs ResetDraws.path_u and .point_u")
-        pos, rot, path_id, point_id = spawn_positions(
-            cfg, tables, draws.path_u, draws.point_u, scenario_id_env, state.pos, reset_mask
-        )
-    speed_new = draws.speed_u * cfg.max_speed
-    vel_new = torch.stack([speed_new * torch.cos(rot), speed_new * torch.sin(rot)], dim=-1)
-    if cfg.is_challenging_initial_state_buffer:
-        use, (pos, rot, speed_new, vel_new, path_id, point_id, scenario_id_env) = _replay_records(
-            cfg, state, draws, full_env_reset, reset_mask,
-            pos, rot, speed_new, vel_new, path_id, point_id, scenario_id_env,
-        )
-        if replay_count is not None:
-            replay_count += use.sum()
+    with trace.span(".spawn"):
+        full_env_reset = reset_mask.all(-1)
+        new_scenario = _sample_scenario_ids(cfg, draws, B, dev)
+        # Full resets draw a fresh scenario group; partial resets keep it.
+        scenario_id_env = torch.where(full_env_reset, new_scenario, state.scenario_id[:, 0])
+        if compact is not None:
+            pos, rot, path_id, point_id = _spawn_positions_compact(
+                cfg, tables, draws, scenario_id_env, state.pos, reset_mask, *compact
+            )
+        else:
+            if draws.path_u is None or draws.point_u is None:
+                raise ValueError("a full-width reset needs ResetDraws.path_u and .point_u")
+            pos, rot, path_id, point_id = spawn_positions(
+                cfg, tables, draws.path_u, draws.point_u, scenario_id_env, state.pos, reset_mask
+            )
+        speed_new = draws.speed_u * cfg.max_speed
+        vel_new = torch.stack([speed_new * torch.cos(rot), speed_new * torch.sin(rot)], dim=-1)
+        if cfg.is_challenging_initial_state_buffer:
+            use, replayed = _replay_records(
+                cfg, state, draws, full_env_reset, reset_mask,
+                pos, rot, speed_new, vel_new, path_id, point_id, scenario_id_env,
+            )
+            pos, rot, speed_new, vel_new, path_id, point_id, scenario_id_env = replayed
+            if replay_count is not None:
+                replay_count += use.sum()
 
-    m = reset_mask
-    m2 = m[..., None]
-    zero = torch.zeros((), dtype=state.rot.dtype, device=dev)
-    state = replace_state(
-        state,
-        pos=torch.where(m2, pos, state.pos),
-        rot=torch.where(m, rot, state.rot),
-        speed=torch.where(m, speed_new, state.speed),
-        steering=torch.where(m, zero, state.steering),
-        sideslip=torch.where(m, zero, state.sideslip),
-        vel=torch.where(m2, vel_new, state.vel),
-        path_id=torch.where(m, path_id, state.path_id),
-        point_id=torch.where(m, point_id, state.point_id),
-        scenario_id=torch.where(m, scenario_id_env[:, None], state.scenario_id),
-        step=torch.where(full_env_reset, torch.zeros_like(state.step), state.step),
-    )
-    if cfg.is_challenging_initial_state_buffer:
-        # Replayed poses are arbitrary: recompute the derived geometry (the
-        # collision flags are cleared below for the envs that reset).
-        state = update_geometry(cfg, tables, state, skip_collisions=True)
-    else:
-        # Spawned poses are spawn-table entries: derived geometry is a gather.
-        state = refresh_geometry_after_reset(cfg, tables, state, reset_mask)
-    state = update_short_term_paths(cfg, tables, state, at_reset=True)
-    # Envs with any reset clear their collision flags.
-    env_any = m.any(-1)
-    state = replace_state(
-        state,
-        coll_agents=state.coll_agents & ~env_any[:, None, None],
-        coll_lanelets=state.coll_lanelets & ~env_any[:, None],
-        coll_entry=state.coll_entry & ~env_any[:, None],
-        coll_exit=state.coll_exit & ~env_any[:, None],
-    )
-    return push_state_buffer(state)
+    with trace.span(".geometry"):
+        m = reset_mask
+        m2 = m[..., None]
+        zero = torch.zeros((), dtype=state.rot.dtype, device=dev)
+        state = replace_state(
+            state,
+            pos=torch.where(m2, pos, state.pos),
+            rot=torch.where(m, rot, state.rot),
+            speed=torch.where(m, speed_new, state.speed),
+            steering=torch.where(m, zero, state.steering),
+            sideslip=torch.where(m, zero, state.sideslip),
+            vel=torch.where(m2, vel_new, state.vel),
+            path_id=torch.where(m, path_id, state.path_id),
+            point_id=torch.where(m, point_id, state.point_id),
+            scenario_id=torch.where(m, scenario_id_env[:, None], state.scenario_id),
+            step=torch.where(full_env_reset, torch.zeros_like(state.step), state.step),
+        )
+        if cfg.is_challenging_initial_state_buffer:
+            # Replayed poses are arbitrary: recompute the derived geometry
+            # (the collision flags are cleared below for the envs that reset).
+            state = update_geometry(cfg, tables, state, skip_collisions=True)
+        else:
+            # Spawned poses are spawn-table entries: derived geometry is a
+            # gather.
+            state = refresh_geometry_after_reset(cfg, tables, state, reset_mask)
+    with trace.span(".paths"):
+        state = update_short_term_paths(cfg, tables, state, at_reset=True)
+        # Envs with any reset clear their collision flags.
+        env_any = m.any(-1)
+        state = replace_state(
+            state,
+            coll_agents=state.coll_agents & ~env_any[:, None, None],
+            coll_lanelets=state.coll_lanelets & ~env_any[:, None],
+            coll_entry=state.coll_entry & ~env_any[:, None],
+            coll_exit=state.coll_exit & ~env_any[:, None],
+        )
+        return push_state_buffer(state)
 
 
 def _replay_records(cfg, state, draws, full_env_reset, reset_mask,

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.core import geometry as G
 from sigmarl_tpu_torch.env.map_tables import MapTables
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state
@@ -33,58 +34,66 @@ def update_geometry(
 
     `skip_collisions` keeps the existing collision flags."""
     pos, rot = state.pos, state.rot
-    verts = G.rectangle_vertices(pos, rot, cfg.agent_width, cfg.agent_length, True)
-    d_agents = _agent_distances(cfg, pos, verts)
+    with trace.span(".agents"):
+        verts = G.rectangle_vertices(pos, rot, cfg.agent_width, cfg.agent_length, True)
+        d_agents = _agent_distances(cfg, pos, verts)
 
     pid = state.path_id.long()
-    lt = tables.long_term[pid]  # [B, N, P, 2]
     lb = tables.left_boundary[pid]  # [B, N, PB, 2]
     rb = tables.right_boundary[pid]
-    d_ref, idx_ref = G.perpendicular_distances(pos, lt, tables.n_points_long_term[pid])
+    with trace.span(".boundaries"):
+        lt = tables.long_term[pid]  # [B, N, P, 2]
+        d_ref, idx_ref = G.perpendicular_distances(pos, lt, tables.n_points_long_term[pid])
 
-    half_w = cfg.agent_width / 2
-    dl0, idx_left = G.perpendicular_distances(pos, lb, tables.n_points_left_b[pid])
-    dr0, idx_right = G.perpendicular_distances(pos, rb, tables.n_points_right_b[pid])
-    v4 = verts[..., 0:4, :]  # [B, N, 4, 2]
-    if cfg.geom_topk_chunks > 0:
-        # Corner sweep over the k chunks of 16 segments with the smallest
-        # bounding-circle lower bound from the agent CG (reach: the
-        # rectangle's half diagonal covers all four corners).
-        from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, chunk_rows, topk_chunks
+        half_w = cfg.agent_width / 2
+        dl0, idx_left = G.perpendicular_distances(pos, lb, tables.n_points_left_b[pid])
+        dr0, idx_right = G.perpendicular_distances(pos, rb, tables.n_points_right_b[pid])
+        v4 = verts[..., 0:4, :]  # [B, N, 4, 2]
+        if cfg.geom_topk_chunks > 0:
+            # Corner sweep over the k chunks of 16 segments with the
+            # smallest bounding-circle lower bound from the agent CG (reach:
+            # the rectangle's half diagonal covers all four corners).
+            from sigmarl_tpu_torch.safety.pseudo_distance import (
+                PD_CHUNK,
+                chunk_rows,
+                topk_chunks,
+            )
 
-        k_sel = min(cfg.geom_topk_chunks, tables.left_seg.shape[1] // PD_CHUNK)
-        reach = 0.5 * float(np.hypot(cfg.agent_length, cfg.agent_width))
-        lsel = topk_chunks(tables.left_chunk_cc, tables.left_chunk_cr, pid, pos, reach, k_sel)
-        rsel = topk_chunks(tables.right_chunk_cc, tables.right_chunk_cr, pid, pos, reach, k_sel)
-        dlv = G.min_distance_to_segment_rows(v4, chunk_rows(tables.left_seg, pid, lsel))
-        drv = G.min_distance_to_segment_rows(v4, chunk_rows(tables.right_seg, pid, rsel))
-    else:
-        dlv = G.min_perpendicular_distance(v4, lb[..., None, :, :])
-        drv = G.min_perpendicular_distance(v4, rb[..., None, :, :])
-    d_left = torch.cat([(dl0 - half_w)[..., None], dlv], dim=-1)  # [B, N, 5]
-    d_right = torch.cat([(dr0 - half_w)[..., None], drv], dim=-1)
-    d_boundary = torch.minimum(d_left.min(-1).values, d_right.min(-1).values)
+            k_sel = min(cfg.geom_topk_chunks, tables.left_seg.shape[1] // PD_CHUNK)
+            reach = 0.5 * float(np.hypot(cfg.agent_length, cfg.agent_width))
+            lsel = topk_chunks(tables.left_chunk_cc, tables.left_chunk_cr, pid, pos, reach, k_sel)
+            rsel = topk_chunks(tables.right_chunk_cc, tables.right_chunk_cr, pid, pos, reach,
+                               k_sel)
+            dlv = G.min_distance_to_segment_rows(v4, chunk_rows(tables.left_seg, pid, lsel))
+            drv = G.min_distance_to_segment_rows(v4, chunk_rows(tables.right_seg, pid, rsel))
+        else:
+            dlv = G.min_perpendicular_distance(v4, lb[..., None, :, :])
+            drv = G.min_perpendicular_distance(v4, rb[..., None, :, :])
+        d_left = torch.cat([(dl0 - half_w)[..., None], dlv], dim=-1)  # [B, N, 5]
+        d_right = torch.cat([(dr0 - half_w)[..., None], drv], dim=-1)
+        d_boundary = torch.minimum(d_left.min(-1).values, d_right.min(-1).values)
 
     if skip_collisions:
         coll_agents, coll_lanelets = state.coll_agents, state.coll_lanelets
         coll_entry, coll_exit = state.coll_entry, state.coll_exit
     else:
-        if cfg.distance_type == "c2c":
-            pair_hit = G.interx(verts[:, :, None], verts[:, None, :])  # [B, N, N]
-            eye = torch.eye(cfg.n_agents, dtype=torch.bool, device=pos.device)
-            coll_agents = pair_hit & ~eye
-        else:
-            coll_agents = d_agents <= 0.0
-        coll_lanelets = G.rect_polyline_hit(
-            pos, rot, cfg.agent_width, cfg.agent_length, lb
-        ) | G.rect_polyline_hit(pos, rot, cfg.agent_width, cfg.agent_length, rb)
-        if cfg.all_paths_loop:
-            coll_entry = torch.zeros_like(state.coll_entry)
-            coll_exit = torch.zeros_like(state.coll_exit)
-        else:
-            not_loop = ~tables.is_loop[pid]
-            coll_entry = G.interx(verts, tables.entry[pid]) & not_loop
-            coll_exit = G.interx(verts, tables.exit[pid]) & not_loop
+        with trace.span(".collisions"):
+            if cfg.distance_type == "c2c":
+                pair_hit = G.interx(verts[:, :, None], verts[:, None, :])  # [B, N, N]
+                eye = torch.eye(cfg.n_agents, dtype=torch.bool, device=pos.device)
+                coll_agents = pair_hit & ~eye
+            else:
+                coll_agents = d_agents <= 0.0
+            coll_lanelets = G.rect_polyline_hit(
+                pos, rot, cfg.agent_width, cfg.agent_length, lb
+            ) | G.rect_polyline_hit(pos, rot, cfg.agent_width, cfg.agent_length, rb)
+            if cfg.all_paths_loop:
+                coll_entry = torch.zeros_like(state.coll_entry)
+                coll_exit = torch.zeros_like(state.coll_exit)
+            else:
+                not_loop = ~tables.is_loop[pid]
+                coll_entry = G.interx(verts, tables.entry[pid]) & not_loop
+                coll_exit = G.interx(verts, tables.exit[pid]) & not_loop
 
     return replace_state(
         state,

@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.safety.pseudo_distance import PD_CHUNK, chunk_rows, pseudo_distance_seg
 
 Tensor = torch.Tensor
@@ -102,8 +103,5 @@ def pseudo_distance_stencil(
     )
     if err != 0:
         raise RuntimeError(f"pseudo-distance stencil kernel launch failed: CUDA error {err}")
-    pseudo_distance_stencil.launches += 1
+    trace.count("k2.launches")
     return d_left, d_right
-
-
-pseudo_distance_stencil.launches = 0

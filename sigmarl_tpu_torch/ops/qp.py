@@ -24,6 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.safety.qp import _phi_candidates, _phi_terms
 
 Tensor = torch.Tensor
@@ -421,11 +422,8 @@ def newton_solve(
     )
     if err != 0:
         raise RuntimeError(f"QP solve kernel launch failed: CUDA error {err}")
-    newton_solve.launches += 1
+    trace.count("k1.launches")
     return u, F
-
-
-newton_solve.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

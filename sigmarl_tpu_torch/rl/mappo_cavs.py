@@ -52,6 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.env.env import RoadTrafficEnv, make_env
 from sigmarl_tpu_torch.env.reset import ResetDraws
@@ -365,6 +366,7 @@ class MAPPOCAVs:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            trace.count_sync(self.device)
 
     # ------------------------------------------------------------ rollout
     def env_transition(
@@ -731,20 +733,23 @@ class MAPPOCAVs:
         t0 = time.perf_counter()
 
         # 1. Collect frames_per_batch = B * T frames.
-        env_state, obs, ep_accum, batch, solved = self.rollout(state, self.local_draws(draws))
-        self._sync()
+        with trace.span("train.rollout"):
+            env_state, obs, ep_accum, batch, solved = self.rollout(state, self.local_draws(draws))
+            self._sync()
         t1 = time.perf_counter()
 
         # 2. Values and GAE with the critic before this iteration's updates.
-        data, priorities = self.frames(state, batch)
-        self._sync()
+        with trace.span("train.gae"):
+            data, priorities = self.frames(state, batch)
+            self._sync()
         t2 = time.perf_counter()
 
         # 3. Epochs of minibatch updates over the flattened frames.
-        opt_state, loss_stats = self.update(state, data, draws, priorities)
-        if state.opt_state.mu is self.opt_state.mu:  # the trainer's moments moved in place
-            self.opt_state = opt_state
-        self._sync()
+        with trace.span("train.update"):
+            opt_state, loss_stats = self.update(state, data, draws, priorities)
+            if state.opt_state.mu is self.opt_state.mu:  # the trainer's moments moved in place
+                self.opt_state = opt_state
+            self._sync()
         t3 = time.perf_counter()
 
         # 4. Mean episodic reward over the done events of the rollout.

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.device import resolve_device
 
 Tensor = torch.Tensor
@@ -86,6 +87,7 @@ class PolicyNet(nn.Module):
     def layers(self) -> nn.ModuleList:
         return self.mlp.layers
 
+    @trace.span("policy")
     def forward(self, obs: Tensor) -> Tuple[Tensor, Tensor]:
         out = self.mlp(obs)
         loc, scale_raw = out[..., : self.act_dim], out[..., self.act_dim:]

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.rl.optim import AdamState
 
 Tensor = torch.Tensor
@@ -148,7 +149,8 @@ class UpdateProgram:
         if self.prio_noise is not None:
             self.prio_noise.copy_(prio_noise)
         if self.graph is not None:
-            self.graph.replay()
+            with trace.span("update.replay"):
+                self.graph.replay()
         else:
             self.step()
 

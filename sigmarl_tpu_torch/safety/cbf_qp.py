@@ -37,6 +37,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.constants import AGENTS
 from sigmarl_tpu_torch.core.geometry import angle_eliminate_two_pi
 from sigmarl_tpu_torch.device import resolve_device, uniform
@@ -250,6 +251,7 @@ class CBFSafetyFilter:
         chunks_r = topk_chunks(t.right_chunk_cc, t.right_chunk_cr, pid, p_ref, reach, k_sel)
         return q, pid, chunks_l, chunks_r
 
+    @trace.span(".lanes")
     def _lane_terms(self, centers: Tensor, path_id: Tensor, idx_left=None, idx_right=None):
         """Safety margin, gradient and Hessian of the pseudo-distance field
         at each circle center. centers [B, N, C, 2]; path_id and the closest
@@ -288,6 +290,7 @@ class CBFSafetyFilter:
 
         return grads(d_left), grads(d_right)
 
+    @trace.span(".rows")
     def _lane_coeffs(self, kins: CenterKinematics, sm, grad, hess):
         """Affine TTCBF lane coefficients. sm [B,N,C], grad [B,N,C,2],
         hess [B,N,C,2,2] -> A [B,N,C,2], b0, h [B,N,C]."""
@@ -302,6 +305,7 @@ class CBFSafetyFilter:
         h = sm - self.cfg.safety_buffer
         return A, b0, h
 
+    @trace.span(".rows")
     def _pair_coeffs(self, centers: Tensor, kins: CenterKinematics):
         """Affine TTCBF pairwise coefficients for all (i<j, ci, cj).
         Returns A_i, A_j [B,P,C,C,2], b0, h [B,P,C,C]."""
@@ -383,87 +387,89 @@ class CBFSafetyFilter:
         A_R, b0_R, h_R = self._lane_coeffs(kins, smR, gR, HR)
         A_pi, A_pj, b0_p, h_p = self._pair_coeffs(centers, kins)
 
-        lane_A = torch.stack([A_L, A_R], dim=3).reshape(B, N, 2 * C, 2)
-        lane_b0 = torch.stack([b0_L, b0_R], dim=3).reshape(B, N, 2 * C)
-        lane_h = torch.stack([h_L, h_R], dim=3).reshape(B, N, 2 * C)
+        # The rows' three parts (lane, pair, stacked) share one span name.
+        with trace.span(".rows"):
+            lane_A = torch.stack([A_L, A_R], dim=3).reshape(B, N, 2 * C, 2)
+            lane_b0 = torch.stack([b0_L, b0_R], dim=3).reshape(B, N, 2 * C)
+            lane_h = torch.stack([h_L, h_R], dim=3).reshape(B, N, 2 * C)
 
-        # CLF rows, residual e * u - lam_clf / 2 * e^2: the heading row acts
-        # on the steering rate, the speed row on the acceleration. Valid
-        # (with slack weight w_clf_relax) only under the CLF controller;
-        # zeros (and invalid) under the RL one.
-        if use_clf:
-            zeros_bn = torch.zeros((B, N), dtype=f32, device=dev)
-            clf_A = torch.stack([torch.stack([zeros_bn, e_head], dim=-1),
-                                 torch.stack([e_speed, zeros_bn], dim=-1)], dim=2)  # [B,N,2,2]
-            clf_b = torch.stack([-cfg.lam_clf * 0.5 * e_head**2,
-                                 -cfg.lam_clf * 0.5 * e_speed**2], dim=-1)
-        else:
-            clf_A = torch.zeros((B, N, 2, 2), dtype=f32, device=dev)
-            clf_b = torch.zeros((B, N, 2), dtype=f32, device=dev)
-        Ks = 2 * C + 2
-        A_s = torch.cat([lane_A, clf_A], dim=2)
-        b0_s = torch.cat([lane_b0, clf_b], dim=2)
-        h_s = torch.cat([lane_h, torch.zeros((B, N, 2), dtype=f32, device=dev)], dim=2)
-        ws_s = torch.cat(
-            [torch.full((B, N, 2 * C), cfg.lane_slack_weight, dtype=f32, device=dev),
-             torch.full((B, N, 2), cfg.w_clf_relax, dtype=f32, device=dev)], dim=2,
-        )
-        valid_s = torch.cat(
-            [torch.ones((B, N, 2 * C), dtype=torch.bool, device=dev),
-             torch.full((B, N, 2), use_clf, dtype=torch.bool, device=dev)], dim=2,
-        )
-
-        P = self._pair_i.shape[0]
-        Kp = C * C
-        if self.decentralized:
-            # Each agent treats the other's control as fixed.
-            A_pj = torch.zeros_like(A_pj)
-        A_pi_f, A_pj_f = A_pi.reshape(B, P, Kp, 2), A_pj.reshape(B, P, Kp, 2)
-        b0_pf, h_pf = b0_p.reshape(B, P, Kp), h_p.reshape(B, P, Kp)
-        wl = self._wl_value()
-        ws_pf = torch.full((B, P, Kp), cfg.pair_slack_weight, dtype=f32, device=dev)
-        wl_pf = torch.full((B, P, Kp), wl, dtype=f32, device=dev)
-        valid_p = torch.ones((B, P, Kp), dtype=torch.bool, device=dev)
-        if self.grouped and group_id is not None:
-            A_pi_f, A_pj_f, b0_pf, h_pf, ws_pf, wl_pf, valid_p = self._split_cross_pairs(
-                group_id, A_pi_f, A_pj_f, b0_pf, h_pf
+            # CLF rows, residual e * u - lam_clf / 2 * e^2: the heading row acts
+            # on the steering rate, the speed row on the acceleration. Valid
+            # (with slack weight w_clf_relax) only under the CLF controller;
+            # zeros (and invalid) under the RL one.
+            if use_clf:
+                zeros_bn = torch.zeros((B, N), dtype=f32, device=dev)
+                clf_A = torch.stack([torch.stack([zeros_bn, e_head], dim=-1),
+                                     torch.stack([e_speed, zeros_bn], dim=-1)], dim=2)  # [B,N,2,2]
+                clf_b = torch.stack([-cfg.lam_clf * 0.5 * e_head**2,
+                                     -cfg.lam_clf * 0.5 * e_speed**2], dim=-1)
+            else:
+                clf_A = torch.zeros((B, N, 2, 2), dtype=f32, device=dev)
+                clf_b = torch.zeros((B, N, 2), dtype=f32, device=dev)
+            Ks = 2 * C + 2
+            A_s = torch.cat([lane_A, clf_A], dim=2)
+            b0_s = torch.cat([lane_b0, clf_b], dim=2)
+            h_s = torch.cat([lane_h, torch.zeros((B, N, 2), dtype=f32, device=dev)], dim=2)
+            ws_s = torch.cat(
+                [torch.full((B, N, 2 * C), cfg.lane_slack_weight, dtype=f32, device=dev),
+                 torch.full((B, N, 2), cfg.w_clf_relax, dtype=f32, device=dev)], dim=2,
             )
-        if not cfg.is_solve_qp:
-            # Non-adaptive gain: fold lambda_ttcbf * h into the constants
-            # (the CLF rows carry h = 0).
-            b0_s = b0_s + cfg.lambda_ttcbf * h_s
-            b0_pf = b0_pf + cfg.lambda_ttcbf * h_pf
-            h_s = torch.zeros_like(h_s)
-            h_pf = torch.zeros_like(h_pf)
-        cons = StructuredConstraintSet(
-            A_s=A_s,
-            b_s=b0_s,
-            h_s=h_s,
-            ws_s=ws_s,
-            wl_s=torch.full((B, N, Ks), wl, dtype=f32, device=dev),
-            valid_s=valid_s,
-            A_pi=A_pi_f,
-            A_pj=A_pj_f,
-            b_p=b0_pf,
-            h_p=h_pf,
-            ws_p=ws_pf,
-            wl_p=wl_pf,
-            valid_p=valid_p,
-            pair_i=self._pair_i,
-            pair_j=self._pair_j,
-        )
-        aux = {
-            "lane_margin_L": smL.min(-1).values,
-            "lane_margin_R": smR.min(-1).values,
-            "rl_clamped": rl_clamped,
-            "lane_A": lane_A,
-            "lane_b0": lane_b0,
-            "lane_h": lane_h,
-            "pair_Ai": A_pi.reshape(B, P, Kp, 2),
-            "pair_Aj": A_pj.reshape(B, P, Kp, 2),
-            "pair_b0": b0_p.reshape(B, P, Kp),
-            "pair_h": h_p.reshape(B, P, Kp),
-        }
+            valid_s = torch.cat(
+                [torch.ones((B, N, 2 * C), dtype=torch.bool, device=dev),
+                 torch.full((B, N, 2), use_clf, dtype=torch.bool, device=dev)], dim=2,
+            )
+
+            P = self._pair_i.shape[0]
+            Kp = C * C
+            if self.decentralized:
+                # Each agent treats the other's control as fixed.
+                A_pj = torch.zeros_like(A_pj)
+            A_pi_f, A_pj_f = A_pi.reshape(B, P, Kp, 2), A_pj.reshape(B, P, Kp, 2)
+            b0_pf, h_pf = b0_p.reshape(B, P, Kp), h_p.reshape(B, P, Kp)
+            wl = self._wl_value()
+            ws_pf = torch.full((B, P, Kp), cfg.pair_slack_weight, dtype=f32, device=dev)
+            wl_pf = torch.full((B, P, Kp), wl, dtype=f32, device=dev)
+            valid_p = torch.ones((B, P, Kp), dtype=torch.bool, device=dev)
+            if self.grouped and group_id is not None:
+                A_pi_f, A_pj_f, b0_pf, h_pf, ws_pf, wl_pf, valid_p = self._split_cross_pairs(
+                    group_id, A_pi_f, A_pj_f, b0_pf, h_pf
+                )
+            if not cfg.is_solve_qp:
+                # Non-adaptive gain: fold lambda_ttcbf * h into the constants
+                # (the CLF rows carry h = 0).
+                b0_s = b0_s + cfg.lambda_ttcbf * h_s
+                b0_pf = b0_pf + cfg.lambda_ttcbf * h_pf
+                h_s = torch.zeros_like(h_s)
+                h_pf = torch.zeros_like(h_pf)
+            cons = StructuredConstraintSet(
+                A_s=A_s,
+                b_s=b0_s,
+                h_s=h_s,
+                ws_s=ws_s,
+                wl_s=torch.full((B, N, Ks), wl, dtype=f32, device=dev),
+                valid_s=valid_s,
+                A_pi=A_pi_f,
+                A_pj=A_pj_f,
+                b_p=b0_pf,
+                h_p=h_pf,
+                ws_p=ws_pf,
+                wl_p=wl_pf,
+                valid_p=valid_p,
+                pair_i=self._pair_i,
+                pair_j=self._pair_j,
+            )
+            aux = {
+                "lane_margin_L": smL.min(-1).values,
+                "lane_margin_R": smR.min(-1).values,
+                "rl_clamped": rl_clamped,
+                "lane_A": lane_A,
+                "lane_b0": lane_b0,
+                "lane_h": lane_h,
+                "pair_Ai": A_pi.reshape(B, P, Kp, 2),
+                "pair_Aj": A_pj.reshape(B, P, Kp, 2),
+                "pair_b0": b0_p.reshape(B, P, Kp),
+                "pair_h": h_p.reshape(B, P, Kp),
+            }
         return cons, u_nom, rl_clamped, aux
 
     def _split_cross_pairs(self, group_id: Tensor, A_pi, A_pj, b0, h):
@@ -522,6 +528,7 @@ class CBFSafetyFilter:
             valid=cat(cons.valid_s, cons.valid_p),
         )
 
+    @trace.span("filter")
     def filter_actions(
         self,
         state: WorldState,
@@ -538,47 +545,51 @@ class CBFSafetyFilter:
         group_id = None
         if self.grouped:
             group_id = group_agents_k_nearest(state.pos, self.max_group_size)
-        cons, u_nom, rl_clamped, aux = self.assemble(state, rl_actions, group_id, noise, generator)
-        u_star, F = solve_structured_qp(
-            cons, u_nom,
-            (cfg.w_u_acc, cfg.w_u_steer), (self.a_min, self.rate_min),
-            (self.a_max, self.rate_max),
-            n_iters=cfg.newton_iters, u_init=u_init, ws_cap=cfg.newton_ws_cap,
-            soft_iters=cfg.newton_soft_iters, soft_cap=cfg.newton_soft_cap,
-        )
-        solved = torch.isfinite(F) & torch.isfinite(u_star).all(-1).all(-1)
-        u_star = torch.where(solved[:, None, None], u_star, u_nom)
+        with trace.span("filter.assemble"):
+            cons, u_nom, rl_clamped, aux = self.assemble(
+                state, rl_actions, group_id, noise, generator)
+        with trace.span("filter.solve"):
+            u_star, F = solve_structured_qp(
+                cons, u_nom,
+                (cfg.w_u_acc, cfg.w_u_steer), (self.a_min, self.rate_min),
+                (self.a_max, self.rate_max),
+                n_iters=cfg.newton_iters, u_init=u_init, ws_cap=cfg.newton_ws_cap,
+                soft_iters=cfg.newton_soft_iters, soft_cap=cfg.newton_soft_cap,
+            )
+        with trace.span("filter.finish"):
+            solved = torch.isfinite(F) & torch.isfinite(u_star).all(-1).all(-1)
+            u_star = torch.where(solved[:, None, None], u_star, u_nom)
 
-        # Residual penetration at the solution: best-case lambda is 1 where
-        # h relaxes the row (h > 0), else 0.
-        r_s = (
-            torch.einsum("bnkc,bnc->bnk", cons.A_s, u_star) + cons.b_s
-            + torch.clamp(cons.h_s, min=0.0)
-        )
-        r_p = (
-            torch.einsum("bpkc,bpc->bpk", cons.A_pi, u_star[:, self._pi])
-            + torch.einsum("bpkc,bpc->bpk", cons.A_pj, u_star[:, self._pj])
-            + cons.b_p + torch.clamp(cons.h_p, min=0.0)
-        )
-        zero = torch.zeros((), dtype=r_s.dtype, device=r_s.device)
-        viol_s = torch.where(cons.valid_s, torch.clamp(-r_s, min=0.0), zero).amax((-1, -2))
-        viol_p = torch.where(cons.valid_p, torch.clamp(-r_p, min=0.0), zero).reshape(
-            r_p.shape[0], -1)
-        # One agent has no pair rows: no pair penetration.
-        viol_p = viol_p.amax(-1) if viol_p.shape[-1] else torch.zeros_like(viol_s)
-        viol = torch.maximum(viol_s, viol_p)
+            # Residual penetration at the solution: best-case lambda is 1
+            # where h relaxes the row (h > 0), else 0.
+            r_s = (
+                torch.einsum("bnkc,bnc->bnk", cons.A_s, u_star) + cons.b_s
+                + torch.clamp(cons.h_s, min=0.0)
+            )
+            r_p = (
+                torch.einsum("bpkc,bpc->bpk", cons.A_pi, u_star[:, self._pi])
+                + torch.einsum("bpkc,bpc->bpk", cons.A_pj, u_star[:, self._pj])
+                + cons.b_p + torch.clamp(cons.h_p, min=0.0)
+            )
+            zero = torch.zeros((), dtype=r_s.dtype, device=r_s.device)
+            viol_s = torch.where(cons.valid_s, torch.clamp(-r_s, min=0.0), zero).amax((-1, -2))
+            viol_p = torch.where(cons.valid_p, torch.clamp(-r_p, min=0.0), zero).reshape(
+                r_p.shape[0], -1)
+            # One agent has no pair rows: no pair penetration.
+            viol_p = viol_p.amax(-1) if viol_p.shape[-1] else torch.zeros_like(viol_s)
+            viol = torch.maximum(viol_s, viol_p)
 
-        safe_actions = self.u_to_rl_action(u_star, state.speed, state.steering)
-        margins = self._margins_from_aux(u_nom, aux)
-        return CBFStepInfo(
-            safe_actions=safe_actions,
-            nominal_actions=rl_clamped,
-            solved=solved,
-            max_violation=viol,
-            infeasible=~solved | (viol > cfg.infeasibility_tol),
-            u_star=u_star,
-            **margins,
-        )
+            safe_actions = self.u_to_rl_action(u_star, state.speed, state.steering)
+            margins = self._margins_from_aux(u_nom, aux)
+            return CBFStepInfo(
+                safe_actions=safe_actions,
+                nominal_actions=rl_clamped,
+                solved=solved,
+                max_violation=viol,
+                infeasible=~solved | (viol > cfg.infeasibility_tol),
+                u_star=u_star,
+                **margins,
+            )
 
     def nominal_margin_rewards(
         self,

@@ -9,6 +9,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import trace
+
 
 @dataclass(frozen=True)
 class CircleApproximation:
@@ -37,6 +39,7 @@ def circle_centers_world(
     """Rotate local circle centers into the world frame.
     pos [..., 2]; rot [...]. Returns [..., n_circles, 2]."""
     local = torch.as_tensor(approx.centers_local, device=pos.device)
+    trace.count_sync(pos.device)  # a copy from pageable host memory
     c, s = torch.cos(rot)[..., None], torch.sin(rot)[..., None]
     x = local[:, 0] * c - local[:, 1] * s
     y = local[:, 0] * s + local[:, 1] * c

@@ -27,6 +27,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import trace
+
 Tensor = torch.Tensor
 
 
@@ -280,6 +282,7 @@ def kernel_inputs(
     dev = u_nom.device
     lo = torch.tensor(u_lo, dtype=u_nom.dtype, device=dev)
     hi = torch.tensor(u_hi, dtype=u_nom.dtype, device=dev)
+    trace.count_sync(dev, 2)  # two copies from pageable host memory
 
     def blocks(u, clip=True):
         if clip:
@@ -290,6 +293,7 @@ def kernel_inputs(
     ui = u0 if u_init is None else blocks(u_init)
     pair_i = torch.as_tensor(np.asarray(cons.pair_i), dtype=torch.int32, device=dev)
     pair_j = torch.as_tensor(np.asarray(cons.pair_j), dtype=torch.int32, device=dev)
+    trace.count_sync(dev, 2)
     return singles, pairs, u0, ui, blocks(u_nom, clip=False), pair_i, pair_j
 
 

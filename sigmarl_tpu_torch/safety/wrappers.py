@@ -6,12 +6,14 @@ from __future__ import annotations
 
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.env.env import RoadTrafficEnv
 from sigmarl_tpu_torch.env.reset import ResetDraws
 from sigmarl_tpu_torch.env.structs import WorldState, replace_state
 from sigmarl_tpu_torch.safety.cbf_qp import CBFSafetyFilter
 
 
+@trace.span("rollout_step")
 def cbf_filtered_step(
     env: RoadTrafficEnv,
     cbf: CBFSafetyFilter,

@@ -417,20 +417,17 @@ def _flat_parameters(state) -> torch.Tensor:
 
 
 def _timed_iteration(tr, state, draws=None):
-    """(state', metrics, seconds, {kernel: launches}) of one iteration, the
-    launch counts set to 0 just before it."""
+    """(state', metrics, seconds, {kernel: launches}) of one iteration."""
     import time
 
-    from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
-    from sigmarl_tpu_torch.ops.qp import newton_solve
+    from sigmarl_tpu_torch.ops import launch_counts
 
-    newton_solve.launches = pseudo_distance_stencil.launches = 0
+    before = launch_counts()
     tr._sync()
     t0 = time.perf_counter()
     state, m = tr.train_iteration(state, draws)
     tr._sync()
-    launches = {"qp_newton": newton_solve.launches,
-                "boundary_stencil": pseudo_distance_stencil.launches}
+    launches = launch_counts(since=before)
     return state, m, time.perf_counter() - t0, launches
 
 

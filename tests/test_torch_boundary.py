@@ -10,6 +10,7 @@ import torch
 from sigmarl_tpu.env.map_tables import lookup, path_onehot
 from sigmarl_tpu.ops.boundary_pallas import pseudo_distance_stencil as jax_stencil
 from sigmarl_tpu.safety import pseudo_distance as jpd
+from sigmarl_tpu_torch.ops import launch_counts
 from sigmarl_tpu_torch.ops.boundary import (
     pseudo_distance_stencil,
     pseudo_distance_stencil_reference,
@@ -102,10 +103,10 @@ def test_cpu_tensors_take_the_plain_version(setup):
     t = tenv.tables
     pid = torch.from_numpy(np.array(state.path_id)).reshape(-1)
     qt = torch.from_numpy(np.array(q)).reshape(B * N, Q, 2)
-    before = pseudo_distance_stencil.launches
+    before = launch_counts()["boundary_stencil"]
     out = pseudo_distance_stencil(qt, pid, t.left_seg, t.right_seg)
     ref = pseudo_distance_stencil_reference(qt, pid, t.left_seg, t.right_seg)
-    assert pseudo_distance_stencil.launches == before
+    assert launch_counts()["boundary_stencil"] == before
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     assert t.left_seg.shape[1] % PD_CHUNK == 0

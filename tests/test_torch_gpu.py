@@ -19,6 +19,7 @@ import torch
 from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.env.env import make_env
 from sigmarl_tpu_torch.env.structs import zero_state
+from sigmarl_tpu_torch.ops import launch_counts
 from sigmarl_tpu_torch.ops.boundary import (
     pseudo_distance_stencil,
     pseudo_distance_stencil_reference,
@@ -37,6 +38,14 @@ from sigmarl_tpu_torch.utils.card_checks import (
 
 pytestmark = pytest.mark.gpu
 B, N, Q = 64, 15, 27
+
+
+def k1_launches() -> int:
+    return launch_counts()["qp_newton"]
+
+
+def k2_launches() -> int:
+    return launch_counts()["boundary_stencil"]
 
 
 @pytest.fixture(scope="module")
@@ -73,11 +82,11 @@ def test_stencil_kernel_matches_plain(rollout):
     sel_l = topk_chunks(t.left_chunk_cc, t.left_chunk_cr, pid, p_ref, 0.1, 3)
     sel_r = topk_chunks(t.right_chunk_cc, t.right_chunk_cr, pid, p_ref, 0.1, 3)
     for chunks in ((None, None), (sel_l, sel_r)):
-        before = pseudo_distance_stencil.launches
+        before = k2_launches()
         out = pseudo_distance_stencil(q, pid, t.left_seg, t.right_seg, *chunks)
         ref = pseudo_distance_stencil_reference(q, pid, t.left_seg, t.right_seg, *chunks)
         torch.cuda.synchronize()
-        assert pseudo_distance_stencil.launches == before + 1
+        assert k2_launches() == before + 1
         for a, b in zip(out, ref):
             torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
 
@@ -115,13 +124,13 @@ def test_stencil_kernel_refuses_rows_beyond_its_limits(rollout):
     t = env.tables
     pid = state.path_id.reshape(R).contiguous()
     q = state.pos.reshape(R, 1, 2).expand(R, 129, 2).contiguous()
-    before = pseudo_distance_stencil.launches
+    before = k2_launches()
     with pytest.raises(ValueError, match="128 queries"):
         pseudo_distance_stencil(q, pid, t.left_seg, t.right_seg)
     chunks = torch.zeros((R, 17), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="16 chunks"):
         pseudo_distance_stencil(q[:, :Q].contiguous(), pid, t.left_seg, t.right_seg, chunks, chunks)
-    assert pseudo_distance_stencil.launches == before
+    assert k2_launches() == before
 
 
 def test_solve_kernel_matches_plain(rollout):
@@ -138,11 +147,11 @@ def test_solve_kernel_matches_plain(rollout):
     args = (*kernel_inputs(cons, u_nom, lo, hi, state.cbf_u_prev, cbf.cfg.newton_ws_cap),
             w_u, lo, hi)
     for it, soft, tol in ((0, 0, None), (1, 0, None), (30, 0, 1e-4), (5, 3, 1e-3)):
-        before = newton_solve.launches
+        before = k1_launches()
         u_k, F_k = newton_solve(*args, it, soft_iters=soft)
         u_p, F_p = newton_solve_reference(*args, it, soft_iters=soft)
         torch.cuda.synchronize()
-        assert newton_solve.launches == before + 1
+        assert k1_launches() == before + 1
         if tol is None:
             torch.testing.assert_close(u_k, u_p, atol=2e-5, rtol=1e-5)
         else:
@@ -155,11 +164,11 @@ def _solve_matches_plain(args, budgets=((0, 0, None), (1, 0, None), (30, 0, 1e-4
     tolerance is given, else F by a relative gap (the plain version sums in
     the kernel's order, so the two differ by rounding only)."""
     for it, soft, tol in budgets:
-        before = newton_solve.launches
+        before = k1_launches()
         u_k, F_k = newton_solve(*args, it, soft_iters=soft)
         u_p, F_p = newton_solve_reference(*args, it, soft_iters=soft)
         torch.cuda.synchronize()
-        assert newton_solve.launches == before + 1
+        assert k1_launches() == before + 1
         assert torch.isfinite(u_k).all() and torch.isfinite(F_k).all()
         if tol is None:
             torch.testing.assert_close(u_k, u_p, atol=2e-5, rtol=1e-5)
@@ -392,11 +401,11 @@ def test_stencil_kernel_gives_nan_for_a_bad_chunk(rollout):
 def test_filtered_step_launches_each_kernel_once(rollout):
     env, cbf, state, g = rollout
     act = (torch.rand((B, N, 2), generator=g, device="cuda") - 0.3) * env.action_limits
-    k1, k2 = newton_solve.launches, pseudo_distance_stencil.launches
+    k1, k2 = k1_launches(), k2_launches()
     state, obs, rew, done, info = cbf_filtered_step(env, cbf, state, act, generator=g)
     torch.cuda.synchronize()
-    assert newton_solve.launches == k1 + 1
-    assert pseudo_distance_stencil.launches == k2 + 1
+    assert k1_launches() == k1 + 1
+    assert k2_launches() == k2 + 1
     assert torch.isfinite(obs).all() and torch.isfinite(rew).all()
     assert obs.shape == (B, N, env.obs_dim) and np.isfinite(info["cbf_max_violation"].cpu()).all()
 
@@ -450,11 +459,11 @@ def test_training_iteration_launches_on_the_card(tmp_path, mode):
     )
     tr = MAPPOCAVs(p)
     state = tr.initial_state()
-    k1, k2 = newton_solve.launches, pseudo_distance_stencil.launches
+    k1, k2 = k1_launches(), k2_launches()
     state, m = tr.train_iteration(state)
     torch.cuda.synchronize()
-    assert newton_solve.launches - k1 == (0 if mode == "informed" else T)
-    assert pseudo_distance_stencil.launches - k2 == T
+    assert k1_launches() - k1 == (0 if mode == "informed" else T)
+    assert k2_launches() - k2 == T
     assert np.isfinite(float(m["loss_objective"])) and np.isfinite(float(m["loss_critic"]))
     assert bool(torch.isfinite(state.obs).all()) and state.opt_state.count == 4
 
@@ -601,10 +610,10 @@ def test_xpmarl_iteration_on_the_card(tmp_path):
                    is_communication_noise=True, where_to_save=str(tmp_path) + "/", device="cuda")
     tr = MAPPOCAVs(p)
     state = tr.initial_state()
-    k1, k2 = newton_solve.launches, pseudo_distance_stencil.launches
+    k1, k2 = k1_launches(), k2_launches()
     state, m = tr.train_iteration(state)
     torch.cuda.synchronize()
-    assert (newton_solve.launches, pseudo_distance_stencil.launches) == (k1, k2)
+    assert (k1_launches(), k2_launches()) == (k1, k2)
     for k in ("loss_objective", "loss_critic", "loss_priority"):
         assert np.isfinite(float(m[k])), k
     assert bool(torch.isfinite(state.obs).all()) and state.opt_state.count == 4
@@ -692,11 +701,11 @@ def test_stencil_kernel_at_one_and_five_circles_and_windows(C, window):
     centers = circle_centers_world(cbf.approx, state.pos, state.rot)
     q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id, state.idx_left, state.idx_right)
     assert q.shape[1] == 9 * C and cl.shape[1] == (6 if window else 3)
-    before = pseudo_distance_stencil.launches
+    before = k2_launches()
     out = pseudo_distance_stencil(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr)
     ref = pseudo_distance_stencil_reference(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr)
     torch.cuda.synchronize()
-    assert pseudo_distance_stencil.launches == before + 1
+    assert k2_launches() == before + 1
     for a, b in zip(out, ref):
         assert torch.equal(a, b) and bool(torch.isfinite(a).all())
 
@@ -831,3 +840,73 @@ def test_bench_scaling_on_one_card():
         assert r["collectives_per_step"] == 2 and math.isfinite(r["reward"])
         assert r["batch"] == 16 * W and torch.cuda.get_device_name(0) in r["device"]
     assert summary["efficiency_vs_1dev"][0] == 1.0 and summary["mechanics"] == (cards < 2)
+
+
+# The port's files whose host syncs fall in each layer's spans.
+SYNC_LAYERS = {"sigmarl_tpu_torch/safety/": "filter", "sigmarl_tpu_torch/env/": "env_step"}
+
+
+@pytest.mark.parametrize("batch", [1, 1024])
+def test_the_program_counts_each_host_sync_in_its_layer(batch):
+    """One main-path filtered step (a decision at B=1, a rollout step at
+    B=1024) under `trace.enable()`: the `syncs` the program counts per span
+    are the waits sync debug mode reports, each in the layer whose file the
+    warning names; each kernel's launch falls in its phase of the filter."""
+    from collections import Counter
+
+    from sigmarl_tpu_torch import trace
+    from sigmarl_tpu_torch.bench import filtered_step, main_path
+    from sigmarl_tpu_torch.device import host_syncs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    env, cbf, policy, gen, state, obs = main_path(batch, N, "cuda")
+    for _ in range(3):
+        state, obs, *_ = filtered_step(env, cbf, policy, state, obs, gen)
+    trace.reset()
+    trace.enable()
+    try:
+        sites = host_syncs(lambda: filtered_step(env, cbf, policy, state, obs, gen))
+    finally:
+        trace.disable()
+    spans = trace.snapshot()["spans"]
+    trace.reset()
+    counted = Counter()
+    for name, s in spans.items():
+        counted[name.split(".")[0]] += s["counts"].get("syncs", 0)
+    warned = Counter(next((layer for d, layer in SYNC_LAYERS.items() if site.startswith(d)), site)
+                     for site in sites)
+    assert +counted == warned, (sites, spans)
+
+    def launches(phase, kernel):  # in the phase and its sub-spans
+        return sum(s["counts"].get(kernel, 0) for name, s in spans.items()
+                   if name == phase or name.startswith(phase + "."))
+
+    assert launches("filter.solve", "k1.launches") == 1
+    assert launches("filter.assemble", "k2.launches") == 1
+
+
+def test_a_span_under_graph_capture_records_nothing():
+    """A span inside captured code is the no-op (a replay runs no host
+    work), even while tracing is on; the graph still replays."""
+    from sigmarl_tpu_torch import trace
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.zeros(4, device="cuda")
+    trace.reset()
+    trace.enable()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            with trace.span("captured"):
+                x.add_(1)
+        with trace.span("replay"):
+            graph.replay()
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    spans = trace.snapshot()["spans"]
+    trace.reset()
+    assert "captured" not in spans and spans["replay"]["calls"] == 1
+    assert torch.equal(x.cpu(), torch.ones(4))

@@ -24,6 +24,7 @@ import torch
 from sigmarl_tpu.safety import CBFConfig as JCBFConfig
 from sigmarl_tpu.safety import CBFSafetyFilter as JCBFSafetyFilter
 from sigmarl_tpu.safety import qp as jqp
+from sigmarl_tpu_torch.ops import launch_counts
 from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference
 from sigmarl_tpu_torch.safety import qp as tqp
 from tests.torch_parity import envs, params
@@ -198,8 +199,8 @@ def test_cpu_tensors_take_the_plain_version(mixed):
     pi = torch.as_tensor(cons.pair_i, dtype=torch.int32)
     pj = torch.as_tensor(cons.pair_j, dtype=torch.int32)
     args = (singles, pairs, u0, u0, unf, pi, pj, W_U, LO, HI, 2)
-    before = newton_solve.launches
+    before = launch_counts()["qp_newton"]
     u, F = newton_solve(*args)
     u_ref, F_ref = newton_solve_reference(*args)
-    assert newton_solve.launches == before
+    assert launch_counts()["qp_newton"] == before
     assert torch.equal(u, u_ref) and torch.equal(F, F_ref)
