@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. the device: `torch.cuda.get_device_name(0)` and nvidia-smi's name and
    power limit (no CUDA device: exit 1);
-2. build both CUDA kernels from `sigmarl_tpu_torch/csrc/` (one nvcc each,
-   in parallel) and print the build seconds and ptxas' resource report;
+2. build the three CUDA kernels from `sigmarl_tpu_torch/csrc/` (one nvcc
+   each, in parallel) and print the build seconds and ptxas' resource
+   report;
 3. the main path, set up as `bench.py` sets up the JAX one: `make_env` on
    cpm_entire with N=15 agents and B=1024 envs, the 3x256 policy with
    seeded weights, the centralized CBF-QP filter at the production budget
@@ -25,8 +26,9 @@ Phases, in order; any failure exits non-zero before the result line:
    finite. Prints env-steps/s beside the card's name and power limit, and
    the steps that ran the reset, compacted (at most 3B/8 = 384 envs
    reset: only those are spawned) and at full width: at least one
-   compacted step in the timed window; one env step syncs the host once
-   (PyTorch's sync debug mode counts the waits);
+   compacted step in the timed window, and K3 (the spawn) launched once per
+   step that ran the reset; one env step syncs the host once (PyTorch's
+   sync debug mode counts the waits);
 6. a small-input check at B=8: the card's constraint assembly, solve and
    environment step against the CPU path (the kernels' plain versions)
    from the same state with the same draws;
@@ -34,9 +36,12 @@ Phases, in order; any failure exits non-zero before the result line:
    about 23 % of the envs: the compacted spawn against full width (whose
    draws carry the compacted rows in the resetting envs' rows) bit for
    bit, and both timed (medians of 7 windows, queued and back to back);
-   then steps at B=1024 (N=4) with the spawn compacted and at full width
-   on the card against the CPU (`utils/card_checks.py`, shared with the
-   card test);
+   then K3 against the plain spawn on the main path's input (about 16 %
+   of B=1024 envs resetting, N=15, T=12), compacted and at full width,
+   every output bit for bit, and K3 timed beside a launch of an empty
+   kernel (its bound) and the plain spawn; then steps at B=1024 (N=4) with
+   the spawn compacted and at full width on the card against the CPU
+   (`utils/card_checks.py`, shared with the card test);
 7. grouped filtering (`scripts/bench_grouped.py`'s setup: groups of at most
    4, Kp = 18 pair rows): K1 against its plain version on a grouped input
    with the tolerances of phase 4, 16 timed steps with one launch of each
@@ -64,8 +69,8 @@ Phases, in order; any failure exits non-zero before the result line:
    on the bench's input captured in this process at B=128 (K1's controls
    also bit for bit at 2+10), then the launcher with 1 rank over nccl and
    2 ranks sharing the card over gloo, each printing its row and the
-   summary: each rank launches each kernel (chunks + 1) x T = 128 times,
-   runs 2 collectives per timed step (the ranks' reset counts and the
+   summary: each rank launches K1 and K2 (chunks + 1) x T = 128 times and
+   K3 once per reset step, runs 2 collectives per timed step (the ranks' reset counts and the
    reward's all-reduce), a finite reward, the card's name and power limit
    in each row, the 2-rank row marked as mechanics;
 8. CBF-informed training at the paper's configuration (cpm_mixed, N=4,
@@ -642,6 +647,61 @@ def reset_timing_phase(env, state, smi) -> None:
     print("reset: the compacted and full-width resets give the same state bit for bit")
 
 
+# K3's main-path input: the share of envs that reset in a rollout step of
+# the benchmark's rollout cell (about 164 of 1024).
+SPAWN_SHARE = 0.16
+
+
+def spawn_kernel_phase(env, state, smi) -> dict:
+    """K3 (`ops/spawn.py::spawn_place`) on the main path's env and live
+    state (cpm_entire, N=15, B=1024, T=12) with a seeded mask of about 16 %
+    of the envs, whole envs as the main path resets them: compacted (rows
+    from 0) and at full width, every output bit for bit with the plain
+    spawn; then K3 compacted, queued behind a spin (the card's time) and
+    back to back, beside an empty kernel's launch (`torch.cuda._sleep(1)`,
+    K3's bound: the work is a few thousand distance checks per env) and
+    the plain spawn. Returns the kernel table's row."""
+    import torch
+
+    from sigmarl_tpu_torch.env.reset import compact_slots
+    from sigmarl_tpu_torch.ops.spawn import spawn_place, spawn_place_reference
+
+    dev = env.device
+    cfg, tables = env.cfg, env.tables
+    g = torch.Generator(device=dev).manual_seed(16)
+    env_any = torch.rand((BATCH,), generator=g, device=dev) < SPAWN_SHARE
+    mask = env_any[:, None].expand(BATCH, N_AGENTS)
+    k, slots, T = int(env_any.sum()), compact_slots(BATCH, False), cfg.max_spawn_tries
+    sid = state.scenario_id[:, 0].contiguous()
+    inputs = {"compacted": (torch.rand((slots, N_AGENTS, T), generator=g, device=dev),
+                            torch.rand((slots, N_AGENTS, T), generator=g, device=dev), (0, k)),
+              "full width": (torch.rand((BATCH, N_AGENTS, T), generator=g, device=dev),
+                             torch.rand((BATCH, N_AGENTS, T), generator=g, device=dev), None)}
+    calls = {}
+    for name, (pu, qu, compact) in inputs.items():
+        args = (cfg, tables, pu, qu, sid, state.pos, mask, compact)
+        got, want = spawn_place(*args), spawn_place_reference(*args)
+        differ = [f for f, a, b in zip(("pos", "rot", "path_id", "point_id"), got, want)
+                  if not torch.equal(a, b)]
+        check(not differ, f"K3 ({name}) differs from the plain spawn in {differ}")
+        calls[name] = (lambda a=args: spawn_place(*a), lambda a=args: spawn_place_reference(*a))
+    print(f"K3: compacted ({k} of {BATCH} envs) and full width equal the plain spawn bit for bit")
+    kernel, plain = calls["compacted"]
+    win = cuda_ms_windows(kernel, reps=200, queued=True)
+    row = dict(name="spawn_place", route="cuda", source="sigmarl_tpu_torch/csrc/spawn_place.cu",
+               replaces="sigmarl_tpu_torch/env/reset.py::spawn_positions (no TPU kernel: XLA)",
+               input=f"main path, {k} of {BATCH} envs resetting, N={N_AGENTS}, T={T}",
+               max_abs_err=0.0, **win, back_to_back_ms=cuda_ms_windows(kernel, reps=200)["ms"],
+               full_width_ms=cuda_ms_windows(calls["full width"][0], reps=200, queued=True)["ms"],
+               bound_ms=cuda_ms_windows(lambda: torch.cuda._sleep(1), reps=200, queued=True)["ms"],
+               bound_by="launch", plain_ms=cuda_ms(plain, reps=20), library_ms=None)
+    print(f"spawn_place: {row['ms']:.4f} ms queued behind a spin ({row['ms_min']:.4f} to "
+          f"{row['ms_max']:.4f}), {row['back_to_back_ms']:.4f} ms back to back, full width "
+          f"{row['full_width_ms']:.4f} ms queued; bound {row['bound_ms']:.4f} ms by launch (an "
+          f"empty kernel), plain {row['plain_ms']:.3f} ms; on {smi}")
+    return row
+
+
 def compact_small_check(dev) -> None:
     """Steps at B=1024 (cpm_entire, N=4) with the spawn compacted and at
     full width on the card against the CPU from the same state and draws,
@@ -833,7 +893,8 @@ def scaling_phase(smi) -> dict:
     process at B=128 after 4 steps from the all-zero state (K1's controls
     bit for bit after 0 and 1 iterations and at 2+10), then the launcher:
     1 rank over nccl and 2 ranks sharing the card over gloo. Each rank
-    launches each kernel (chunks + 1) x T times, runs 2 collectives per
+    launches K1 and K2 (chunks + 1) x T times and K3 once per reset step,
+    runs 2 collectives per
     timed step, a finite reward; the 2-rank row measures mechanics."""
     import torch
 
@@ -868,7 +929,8 @@ def scaling_phase(smi) -> dict:
     for r in rows:
         what = f"scaling, {r['global_devices']} ranks over {r['backend']}"
         for launches in r["launches"]:
-            check_launches(launches, {"qp_newton": per_rank, "boundary_stencil": per_rank}, what)
+            check_launches(launches, {"qp_newton": per_rank, "boundary_stencil": per_rank,
+                                      "spawn_place": r["reset_steps"]}, what)
         check(math.isfinite(r["reward"]), f"{what}: reward {r['reward']}")
         check(r["collectives_per_step"] == 2,
               f"{what}: {r['collectives_per_step']} collectives per step, want 2")
@@ -1379,13 +1441,20 @@ CERT_STEPS = 20
 
 
 _LAUNCH_BASE = {}  # the kernels' launch counts at the last `zero_launch_counts`
+FILTER_KERNELS = ("qp_newton", "boundary_stencil")
 
 
-def launch_counts() -> dict:
-    """The kernels' launches since `zero_launch_counts()`."""
+def all_launch_counts() -> dict:
+    """Every kernel's launches since `zero_launch_counts()`."""
     from sigmarl_tpu_torch.ops import launch_counts as total
 
     return total(since=_LAUNCH_BASE or None)
+
+
+def launch_counts() -> dict:
+    """The filter's kernels' (K1, K2) launches since `zero_launch_counts()`;
+    K3's follow the reset steps (`all_launch_counts`)."""
+    return {k: n for k, n in all_launch_counts().items() if k in FILTER_KERNELS}
 
 
 def zero_launch_counts() -> None:
@@ -2077,7 +2146,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = build.build_all(force=True)
-    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    print(f"build: {len(report)} kernels in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
     for lib, (sec, log) in report.items():
         info = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"  {lib}: {sec:.1f} s; " + " | ".join(info))
@@ -2100,12 +2169,15 @@ def main() -> int:
     state, obs, finite, solved = rollout(env, cbf, policy, gen, state, obs, TIMED_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    spawns = all_launch_counts()["spawn_place"]
     launches = launch_counts()
     main_resets = reset_branches(env)
-    print(f"main path: {TIMED_STEPS} steps, launches {launches}, solved share {solved:.6f}")
+    print(f"main path: {TIMED_STEPS} steps, launches {launches}, spawn_place {spawns}, "
+          f"solved share {solved:.6f}")
     print(f"main path reset steps: {fmt_branches(main_resets, TIMED_STEPS)} of the timed "
           f"steps; warm-up {fmt_branches(warm_resets, WARMUP_STEPS)}")
     check(main_resets[1] > 0, f"no compacted reset step on the main path ({main_resets})")
+    check(spawns == main_resets[0], f"K3 launched {spawns} times in {main_resets[0]} reset steps")
     act = policy_actions(env, policy, obs, gen)
     syncs = host_syncs(lambda: env.step(state, act, generator=gen))
     print(f"main path: {len(syncs)} host sync in one env step, at {syncs} (the number of "
@@ -2120,6 +2192,7 @@ def main() -> int:
 
     small_input_check(dev)
     reset_timing_phase(env, state, smi)
+    k3_row = spawn_kernel_phase(env, state, smi)
     compact_small_check(dev)
 
     grouped = grouped_phase(env, policy, gen, smi)
@@ -2249,6 +2322,7 @@ def main() -> int:
               f"{r['launches']} launches on its path; on {smi}")
         paths["k2"].append(r)
     rows = kernel_report(qp_args, qp_static, pd_args, launches, errs, paths)
+    rows.append(dict(k3_row, launches=spawns, launches_by_path={"main": spawns}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -9,7 +9,9 @@ with the challenge buffer off: when no more than 3B/8 envs reset, only
 those envs' rows are gathered, spawned and scattered back (the JAX
 package's static-size compaction). Their candidates come from the first
 rows of [3B/8, N, T] draws, the s-th resetting env (in env order) taking
-row s, so that both packages spawn alike from the same draws.
+row s, so that both packages spawn alike from the same draws. On the card
+the spawn, compacted or not, is one launch of a kernel
+(`ops/spawn.py::spawn_place`); `spawn_positions` is its plain version.
 
 With the challenging initial-state buffer on, a full-env reset replays a
 recorded state instead, with probability `probability_use_recording`, and
@@ -36,6 +38,7 @@ from sigmarl_tpu_torch.env.updates import (
     update_geometry,
     update_short_term_paths,
 )
+from sigmarl_tpu_torch.ops.spawn import spawn_place
 
 Tensor = torch.Tensor
 
@@ -232,7 +235,8 @@ def spawn_positions(
 def _spawn_positions_compact(
     cfg: EnvConfig,
     tables: MapTables,
-    draws: ResetDraws,
+    path_u_c: Tensor,
+    point_u_c: Tensor,
     scenario_id: Tensor,
     prev_pos: Tensor,
     reset_mask: Tensor,
@@ -241,15 +245,10 @@ def _spawn_positions_compact(
 ):
     """`spawn_positions` over only the `count` envs with a reset (their
     number, known on the host), with rows [first, first + count) of the
-    compacted draws: the resetting envs are gathered in env order, spawned
-    and scattered back. Returns what `spawn_positions` returns over all
-    envs (the envs without a reset pass `prev_pos` through, zeros
-    elsewhere)."""
-    if draws.path_u_c is None or draws.point_u_c is None:
-        raise ValueError("a compacted reset needs ResetDraws.path_u_c and .point_u_c")
-    if first + count > draws.path_u_c.shape[0]:
-        raise ValueError(f"rows [{first}, {first + count}) exceed the "
-                         f"{draws.path_u_c.shape[0]} compacted draws")
+    compacted draws `path_u_c`, `point_u_c` [S, N, T]: the resetting envs
+    are gathered in env order, spawned and scattered back. Returns what
+    `spawn_positions` returns over all envs (the envs without a reset pass
+    `prev_pos` through, zeros elsewhere)."""
     B, N = prev_pos.shape[:2]
     rot = torch.zeros((B, N), dtype=prev_pos.dtype, device=prev_pos.device)
     path_id = torch.zeros((B, N), dtype=torch.int32, device=prev_pos.device)
@@ -264,7 +263,7 @@ def _spawn_positions_compact(
     envs = envs.scatter(0, slot, torch.arange(B, device=prev_pos.device))[:count]
     rows = slice(first, first + count)
     pos_s, rot_s, path_s, point_s = spawn_positions(
-        cfg, tables, draws.path_u_c[rows], draws.point_u_c[rows], scenario_id[envs],
+        cfg, tables, path_u_c[rows], point_u_c[rows], scenario_id[envs],
         prev_pos[envs], reset_mask[envs],
     )
     return (prev_pos.index_copy(0, envs, pos_s), rot.index_copy(0, envs, rot_s),
@@ -291,15 +290,16 @@ def apply_reset(
         # Full resets draw a fresh scenario group; partial resets keep it.
         scenario_id_env = torch.where(full_env_reset, new_scenario, state.scenario_id[:, 0])
         if compact is not None:
-            pos, rot, path_id, point_id = _spawn_positions_compact(
-                cfg, tables, draws, scenario_id_env, state.pos, reset_mask, *compact
-            )
+            path_u, point_u = draws.path_u_c, draws.point_u_c
+            if path_u is None or point_u is None:
+                raise ValueError("a compacted reset needs ResetDraws.path_u_c and .point_u_c")
         else:
-            if draws.path_u is None or draws.point_u is None:
+            path_u, point_u = draws.path_u, draws.point_u
+            if path_u is None or point_u is None:
                 raise ValueError("a full-width reset needs ResetDraws.path_u and .point_u")
-            pos, rot, path_id, point_id = spawn_positions(
-                cfg, tables, draws.path_u, draws.point_u, scenario_id_env, state.pos, reset_mask
-            )
+        pos, rot, path_id, point_id = spawn_place(
+            cfg, tables, path_u, point_u, scenario_id_env, state.pos, reset_mask, compact
+        )
         speed_new = draws.speed_u * cfg.max_speed
         vel_new = torch.stack([speed_new * torch.cos(rot), speed_new * torch.sin(rot)], dim=-1)
         if cfg.is_challenging_initial_state_buffer:

@@ -26,6 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {
     "boundary_stencil": "boundary_stencil.cu",
     "qp_newton": "qp_newton.cu",
+    "spawn_place": "spawn_place.cu",
 }
 
 # sm_90a keeps Hopper-only instructions available to later kernels.

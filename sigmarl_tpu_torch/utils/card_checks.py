@@ -513,7 +513,8 @@ def sharded_vs_unsharded(ref: dict, ranks: List[dict], what: str) -> List[Check]
     - the parameters: at least 99 % within 1e-6 of the unsharded ones and
       all within 2 lr per update; every rank's equal to rank 0's;
     - the metrics: `n_done` equal, the rest to a relative 1e-4;
-    - launches: K1 and K2 once per rollout step on every rank;
+    - launches: K1 and K2 once per rollout step on every rank, K3 once per
+      reset step (every rank spawns when any env resets);
     - the reset-step counts (reset, compacted, full width) of every rank
       equal the unsharded env's: the branch is decided over all envs."""
     checks = []
@@ -564,7 +565,9 @@ def sharded_vs_unsharded(ref: dict, ranks: List[dict], what: str) -> List[Check]
     T = len(ref["draws"].reset_draws)
     for rank, r in enumerate(ranks):
         for it, launches in enumerate(r["launches"]):
+            resets = r["resets"][it][0] - (r["resets"][it - 1][0] if it else 0)
             for k, n in launches.items():
+                want = resets if k == "spawn_place" else T
                 checks.append(Check(f"{what}: rank {rank} iteration {it + 1} {k} launches",
-                                    n, T, n == T))
+                                    n, want, n == want))
     return checks

@@ -73,7 +73,7 @@ def test_launcher_prints_a_row_per_rank_count_and_a_summary(ranks_run, capsys):
         assert r["mechanics"] and r["device"] == "cpu" and r["steps_per_s"] > 0
         assert set(r["chunk_steps_per_s"]) == {"min", "median", "max"}
         # No kernel launches on the CPU (the plain versions run), one per rank.
-        assert r["launches"] == [{"qp_newton": 0, "boundary_stencil": 0}] * world
+        assert r["launches"] == [{"qp_newton": 0, "boundary_stencil": 0, "spawn_place": 0}] * world
         # The ranks' reset count (all-gather) and the reward's all-reduce.
         assert r["collectives_per_step"] == 2
         # The first step resets every env; below 1024 envs nothing compacts.

@@ -749,6 +749,177 @@ def test_compacted_reset_on_the_card_matches_the_cpu():
     assert all(c.ok for c in checks), [c for c in checks if not c.ok]
 
 
+def _spawn_case(case: str, seed: int = 0):
+    """(cfg, tables, path_u, point_u, scenario_id, prev_pos, reset_mask,
+    compact) on the card for one case of the spawn kernel: the previous
+    positions of a reset from the seed, then the case's mask and draws."""
+    scenario, n, b, testing = {
+        "mixed_partial": ("cpm_mixed", 4, 128, False),
+        "testing": ("cpm_entire", 15, 256, True),
+        "infeasible": ("cpm_entire", 15, 64, False),
+        "threshold": ("cpm_entire", 2, 512, False),
+    }.get(case, ("cpm_entire", N, 1024, False))
+    p = Parameters(scenario_type=scenario, n_agents=n, num_vmas_envs=b, dt=0.1,
+                   max_steps=1_000_000, is_use_mtv_distance=False, is_obs_noise=False,
+                   is_testing_mode=testing)
+    env = make_env(p, device="cuda")
+    cfg, tables = env.cfg, env.tables
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    state, _ = env.reset(generator=g)
+    T = cfg.max_spawn_tries
+    pos, sid = state.pos, state.scenario_id[:, 0].contiguous()
+    compact = None
+    if case.startswith("entire"):
+        # Whole envs reset, about 16 % of them, as the main path's mask.
+        # (None in one case: a rank whose envs do not reset.)
+        share = 0.0 if case == "entire_none" else 0.16
+        env_any = torch.rand((b,), generator=g, device="cuda") < share
+        mask = env_any[:, None].expand(b, n)
+        k = int(env_any.sum())
+        if case != "entire_full":
+            first = {"entire_compact": 0, "entire_none": 10}.get(case, 384 - k - 7)
+            compact = (first, k)
+        rows = 384 if compact else b
+    else:
+        mask = torch.rand((b, n), generator=g, device="cuda") < 0.3
+        mask[: b // 4] = True  # whole-env resets too
+        rows = b
+    if case == "mixed_partial":
+        sid = torch.randint(1, 4, (b,), generator=g, device="cuda", dtype=torch.int32)
+    if case == "infeasible":
+        cfg = dataclasses.replace(cfg, reset_agent_min_distance=50.0)
+    path_u = torch.rand((rows, n, T), generator=g, device="cuda")
+    point_u = torch.rand((rows, n, T), generator=g, device="cuda")
+    if case == "threshold":
+        pos, mask = _near_threshold(cfg, tables, path_u, point_u, sid, pos)
+    if case == "entire_compact_first":  # positions sliced from a wider tensor
+        pos = torch.cat([pos.flip(-1), pos], -1)[..., 2:]
+    return cfg, tables, path_u, point_u, sid, pos, mask, compact
+
+
+def _near_threshold(cfg, tables, path_u, point_u, sid, pos):
+    """Agent 0 resets and agent 1 keeps a position at which agent 0's first
+    candidate lies at a squared distance, as float32 rounds it, of one ulp
+    below the threshold, the threshold, or one ulp above (by env)."""
+    c = _candidates(cfg, tables, path_u, point_u, sid)[2][:, 0, 0].cpu().numpy()  # [B, 2]
+    thr = np.float32(cfg.reset_agent_min_distance ** 2)
+    targets = [np.nextafter(thr, np.float32(0)), thr, np.nextafter(thr, np.float32(1))]
+    k = np.arange(-60, 61, dtype=np.float32)
+    out = pos.cpu().numpy().copy()
+    hit = np.zeros(len(c), bool)
+    for b, (cx, cy) in enumerate(c):
+        # Offsets (dx, 0.3 m) with dx^2 + 0.09 about the threshold, then
+        # steps of one ulp of each coordinate of the kept position.
+        px0 = np.float32(cx - np.sqrt(np.float64(thr) - 0.09))
+        py0 = np.float32(cy - 0.3)
+        px = px0 + k * np.spacing(px0)
+        py = py0 + k * np.spacing(py0)
+        dx = (np.float32(cx) - px)[:, None]
+        dy = (np.float32(cy) - py)[None, :]
+        d2 = (dx * dx) + (dy * dy)
+        i, j = np.nonzero(d2 == targets[b % 3])
+        if len(i):
+            out[b, 1] = (px[i[0]], py[j[0]])
+            hit[b] = True
+    assert hit.mean() > 0.9, hit.mean()
+    mask = torch.zeros(pos.shape[:2], dtype=torch.bool, device="cuda")
+    mask[:, 0] = True
+    return torch.from_numpy(out).cuda(), mask
+
+
+SPAWN_CASES = ["entire_compact", "entire_compact_first", "entire_none", "entire_full",
+               "mixed_partial", "testing", "infeasible", "threshold"]
+
+
+@pytest.mark.parametrize("case", SPAWN_CASES)
+def test_spawn_kernel_matches_plain_bit_for_bit(case):
+    """K3 against the plain spawn on the card, every output equal: cpm_entire
+    N=15 whole-env resets compacted from row 0 and from a later row (with
+    positions sliced from a wider tensor), none (a rank whose envs do not
+    reset), and at full width; cpm_mixed N=4
+    with partial masks and scenario groups 1 to 3; testing mode's 20 tries
+    in a growing window; a minimum distance that no candidate meets (each
+    agent takes its last candidate); and squared distances one ulp below,
+    at and above the threshold. One launch each."""
+    from sigmarl_tpu_torch.ops.spawn import spawn_place, spawn_place_reference
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    args = _spawn_case(case)
+    before = launch_counts()["spawn_place"]
+    got = spawn_place(*args)
+    want = spawn_place_reference(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["spawn_place"] == before + 1
+    for name, a, b in zip(("pos", "rot", "path_id", "point_id"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (case, name, int((a != b).sum()))
+    if case in ("infeasible", "threshold"):
+        cp, cq, cpos = _candidates(*args[:5])
+    if case == "infeasible":  # every agent after the first takes its last try
+        assert torch.equal(got[2][:, 1:], cp[:, 1:, -1])
+        assert torch.equal(got[3][:, 1:], cq[:, 1:, -1])
+    if case == "threshold":  # both outcomes occur: first candidate kept or not
+        kept = (got[0][:, 0] == cpos[:, 0, 0]).all(-1)
+        assert 0 < int(kept.sum()) < kept.numel()
+
+
+def _candidates(cfg, tables, path_u, point_u, sid):
+    """The plain version's candidate paths, point ids [B, N, T] and
+    positions [B, N, T, 2]."""
+    from sigmarl_tpu_torch.env.reset import _candidate_point_ids, _sample_candidate_paths
+
+    cp = _sample_candidate_paths(tables, path_u, sid)
+    cq = _candidate_point_ids(cfg, point_u, tables.n_points_long_term[cp.long()])
+    return cp, cq, tables.long_term[cp.long(), cq.long()]
+
+
+@pytest.mark.parametrize("case", ["entire_compact", "entire_full", "mixed_partial", "testing"])
+def test_apply_reset_with_the_spawn_kernel_equals_the_plain_spawn(case, monkeypatch):
+    """`apply_reset` on the card gives the same `WorldState`, every field
+    bit for bit, with K3 as with the plain spawn in its place."""
+    from sigmarl_tpu_torch.env import reset as reset_mod
+    from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset
+    from sigmarl_tpu_torch.ops.spawn import spawn_place_reference
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    cfg, tables, path_u, point_u, sid, pos, mask, compact = _spawn_case(case, seed=1)
+    B, Nn = mask.shape
+    state = zero_state(cfg, "cuda")
+    state = dataclasses.replace(state, pos=pos, scenario_id=sid[:, None].expand(B, Nn).contiguous())
+    g = torch.Generator(device="cuda").manual_seed(2)
+    draws = ResetDraws.sample(cfg, g, "cuda", full=compact is None,
+                              compact_slots=path_u.shape[0] if compact else 0)
+    if compact:
+        draws.path_u_c, draws.point_u_c = path_u, point_u
+    else:
+        draws.path_u, draws.point_u = path_u, point_u
+    kernel = apply_reset(cfg, tables, state, mask, draws, compact=compact)
+    monkeypatch.setattr(reset_mod, "spawn_place", spawn_place_reference)
+    plain = apply_reset(cfg, tables, state, mask, draws, compact=compact)
+    differ = [f.name for f in dataclasses.fields(kernel)
+              if not torch.equal(getattr(kernel, f.name), getattr(plain, f.name))]
+    assert not differ, differ
+
+
+def test_the_spawn_kernel_launches_once_per_reset_step():
+    """Over 32 filtered main-path steps at B=1024 (N=15), K3's launches
+    equal the env's reset steps, compacted steps among them."""
+    from sigmarl_tpu_torch.bench import filtered_step, main_path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    env, cbf, policy, gen, state, obs = main_path(1024, N, "cuda")
+    before, resets, compacted = launch_counts(), env.reset_steps, env.compact_reset_steps
+    for _ in range(32):
+        state, obs, *_ = filtered_step(env, cbf, policy, state, obs, gen)
+    torch.cuda.synchronize()
+    launches = launch_counts(since=before)
+    assert launches["spawn_place"] == env.reset_steps - resets > 0
+    assert env.compact_reset_steps - compacted > 0
+    assert launches["qp_newton"] == launches["boundary_stencil"] == 32
+
+
 def test_one_rank_nccl_iteration_matches_the_unsharded_one():
     """The CBF-filtered iteration with the challenge buffer on (cpm_entire,
     N=15, B=64, T=8) on a 1-rank nccl group (`parallel/mesh.py`) against the
@@ -836,7 +1007,10 @@ def test_bench_scaling_on_one_card():
         W = r["global_devices"]
         assert (r["backend"], r["cards"], r["mechanics"]) == (
             ("nccl", W, False) if W <= cards else ("gloo", 1, True))
-        assert r["launches"] == [{"qp_newton": 8, "boundary_stencil": 8}] * W
+        # The spawn kernel once per step with a reset (every rank spawns at
+        # full width below 1024 envs).
+        assert r["launches"] == [{"qp_newton": 8, "boundary_stencil": 8,
+                                  "spawn_place": r["reset_steps"]}] * W
         assert r["collectives_per_step"] == 2 and math.isfinite(r["reward"])
         assert r["batch"] == 16 * W and torch.cuda.get_device_name(0) in r["device"]
     assert summary["efficiency_vs_1dev"][0] == 1.0 and summary["mechanics"] == (cards < 2)
