@@ -471,16 +471,21 @@ class MAPPOCAVs:
         shard, from draws already sliced by `local_draws`). Returns
         (env_state, obs, ep_reward_accum, batch, solved) with the batch's
         fields stacked to [T, ...] and `solved` the filter's solved flags
-        [T, B] (None without a filtered step)."""
+        [T, B] (None without a filtered step). A step's acting and its env
+        transition are the spans `.act` and `.transition`
+        (`train.rollout.act`, `train.rollout.transition` in an iteration)."""
         env_state, obs, ep_accum = state.env_state, state.obs, state.ep_reward_accum
         steps: List[Transition] = []
         solved = []
         for t in range(self.parameters.max_steps):
-            action, log_prob, obs_ppo, scores, scores_lp = self.act(state, env_state, obs, draws, t)
-            env_state, next_obs, reward, done, info = self.env_transition(
-                env_state, action, _draw(draws, "reset_draws", t),
-                cbf_noise=_draw(draws, "cbf_noise", t), obs_noise=_draw(draws, "obs_noise", t),
-            )
+            with trace.span(".act"):
+                action, log_prob, obs_ppo, scores, scores_lp = self.act(
+                    state, env_state, obs, draws, t)
+            with trace.span(".transition"):
+                env_state, next_obs, reward, done, info = self.env_transition(
+                    env_state, action, _draw(draws, "reset_draws", t),
+                    cbf_noise=_draw(draws, "cbf_noise", t), obs_noise=_draw(draws, "obs_noise", t),
+                )
             if "cbf_solved" in info:
                 solved.append(info["cbf_solved"])
             ep_accum = ep_accum + reward
