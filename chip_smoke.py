@@ -27,8 +27,9 @@ Phases, in order; any failure exits non-zero before the result line:
    the steps that ran the reset, compacted (at most 3B/8 = 384 envs
    reset: only those are spawned) and at full width: at least one
    compacted step in the timed window, and K3 (the spawn) launched once per
-   step that ran the reset; one env step syncs the host once (PyTorch's
-   sync debug mode counts the waits);
+   step that ran the reset; every timed step replays the filter's graph
+   (captured in the warm-up), and one filtered step syncs the host once,
+   in the env step (PyTorch's sync debug mode counts the waits);
 6. a small-input check at B=8: the card's constraint assembly, solve and
    environment step against the CPU path (the kernels' plain versions)
    from the same state with the same draws;
@@ -364,6 +365,12 @@ def policy_actions(env, policy, obs, gen):
     return policy_actions(env, policy, obs, gen)
 
 
+def filtered_step(env, cbf, policy, state, obs, gen):
+    from sigmarl_tpu_torch.bench import filtered_step
+
+    return filtered_step(env, cbf, policy, state, obs, gen)
+
+
 def rollout(env, cbf, policy, gen, state, obs, steps):
     """`steps` filtered steps; returns the final state and obs, whether
     obs, rewards and u* stayed finite, and the mean solved share."""
@@ -400,7 +407,7 @@ def capture_kernel_inputs(env, cbf, policy, gen, state, obs):
     from sigmarl_tpu_torch.safety.circles import circle_centers_world
 
     qp_args, qp_static = qp_capture(cbf, state, policy_actions(env, policy, obs, gen))
-    centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+    centers = circle_centers_world(cbf.centers_local, state.pos, state.rot)
     q, pid, chunks_l, chunks_r = cbf.stencil_inputs(centers, state.path_id)
     pd_args = (q, pid, env.tables.left_seg, env.tables.right_seg, chunks_l, chunks_r)
     return qp_args, qp_static, pd_args
@@ -1441,6 +1448,7 @@ CERT_STEPS = 20
 
 
 _LAUNCH_BASE = {}  # the kernels' launch counts at the last `zero_launch_counts`
+_GRAPH_BASE = {}  # the filter graph's counts then
 FILTER_KERNELS = ("qp_newton", "boundary_stencil")
 
 
@@ -1464,6 +1472,18 @@ def zero_launch_counts() -> None:
 
     torch.cuda.synchronize()
     _LAUNCH_BASE.update(total())
+    _GRAPH_BASE.update(graph_counts())
+
+
+def graph_counts(since: dict | None = None) -> dict:
+    """The filter's graph captures and replays so far (the trace's counts
+    `filter.graph.captures`, `filter.graph.replays`); with `since`, an
+    earlier reading, those after it."""
+    from sigmarl_tpu_torch import trace
+
+    counts = trace.snapshot()["counts"]
+    return {k: counts.get(f"filter.graph.{k}", 0) - (since or {}).get(k, 0)
+            for k in ("captures", "replays")}
 
 
 def reset_branches(env) -> tuple:
@@ -1665,7 +1685,7 @@ def windowed_eval_run(smi: str) -> dict:
     res = eval_rollout(env, cbf, WINDOW_STEPS, 0.5,
                        "windowed CBF evaluation (cpm_mixed, N=4, B=32, pd_topk_chunks=0)", smi)
     state = filtered_state(env, cbf)
-    centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+    centers = circle_centers_world(cbf.centers_local, state.pos, state.rot)
     q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id, state.idx_left, state.idx_right)
     check(cl is not None and cl.shape[1] == 6, "no window selection")
     return dict(res, pd=(q, pid, env.tables.left_seg, env.tables.right_seg, cl, cr))
@@ -1720,7 +1740,7 @@ def itsc25_phase(smi: str, workdir: str) -> dict:
         qp = clf_qp_capture(cbf, state)
         check(qp[0][1].shape[-1] == 0 and qp[0][0].shape[-1] == 2 * C + 2,
               f"C={C}: K1's input is not one agent with 2C+2 rows")
-        centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+        centers = circle_centers_world(cbf.centers_local, state.pos, state.rot)
         q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id)
         out[C] = dict(launches=launches, steps_per_s=res["timing_steps_per_s"],
                       reset_share=res["reset_share"], solved_share=solved,
@@ -2178,11 +2198,14 @@ def main() -> int:
           f"steps; warm-up {fmt_branches(warm_resets, WARMUP_STEPS)}")
     check(main_resets[1] > 0, f"no compacted reset step on the main path ({main_resets})")
     check(spawns == main_resets[0], f"K3 launched {spawns} times in {main_resets[0]} reset steps")
-    act = policy_actions(env, policy, obs, gen)
-    syncs = host_syncs(lambda: env.step(state, act, generator=gen))
-    print(f"main path: {len(syncs)} host sync in one env step, at {syncs} (the number of "
-          "resetting envs)")
-    check(len(syncs) == 1, f"{len(syncs)} host syncs in one env step, at {syncs}; want 1")
+    graphs = graph_counts(since=_GRAPH_BASE)
+    print(f"main path: filter graph {graphs} in the {TIMED_STEPS} steps")
+    check(graphs == {"captures": 0, "replays": TIMED_STEPS},
+          f"the filter's graph: {graphs} in {TIMED_STEPS} steps; want every step a replay")
+    syncs = host_syncs(lambda: filtered_step(env, cbf, policy, state, obs, gen))
+    print(f"main path: {len(syncs)} host sync in one filtered step, at {syncs} (the env "
+          "step's read of the number of resetting envs; the filter replays its graph)")
+    check(len(syncs) == 1, f"{len(syncs)} host syncs in one filtered step, at {syncs}; want 1")
     check(finite, "non-finite obs, reward or u* on the main path")
     check(obs.shape == (BATCH, N_AGENTS, env.obs_dim), f"obs shape {tuple(obs.shape)}")
     for k, n in launches.items():

@@ -134,6 +134,77 @@ _STENCIL = np.array(
 )
 
 
+class _FilterInputs(NamedTuple):
+    """What the filter's body reads: the state's fields (the closest
+    boundary vertices under the windowed stencil and the short-term
+    reference points under the CLF controller, else None), the RL actions,
+    the warm start and the observation-noise draw (None where absent).
+    It stands in for the state in the body."""
+
+    pos: Tensor
+    rot: Tensor
+    speed: Tensor
+    steering: Tensor
+    path_id: Tensor
+    idx_left: Tensor | None
+    idx_right: Tensor | None
+    short_term: Tensor | None
+    rl_actions: Tensor
+    u_init: Tensor | None
+    noise: Tensor | None
+
+
+class _FilterGraph:
+    """The filter's body captured as one CUDA graph for one shape of its
+    inputs: the input buffers it reads, the graph, the outputs it writes,
+    and the counts of its capture (K1's and K2's launches), which each
+    replay adds. Its random draws stay outside, as the update graph's do
+    (`rl/update_program.py`), so a replay computes what the body computes
+    on the same inputs, bit for bit."""
+
+    def __init__(self, graph, inputs: _FilterInputs, outputs: CBFStepInfo, counts: dict):
+        self.graph, self.inputs, self.outputs, self.counts = graph, inputs, outputs, counts
+
+    @classmethod
+    def capture(cls, body, inputs: _FilterInputs):
+        """Copy `inputs` into new buffers, run `body` (the filter's body on
+        `_FilterInputs`, which stand in for the state) on them on a side
+        stream (the warm-up PyTorch's graph documentation asks for; its
+        result is this call's) and capture it. Returns (the graph, the
+        result). A capture that fails raises: there is no eager fallback."""
+        dev = inputs.pos.device
+        static = _FilterInputs(*(
+            None if t is None else t.clone(memory_format=torch.contiguous_format)
+            for t in inputs))
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            info = body(static)
+        cur.wait_stream(side)
+        for t in info:
+            t.record_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with trace.diverted() as counts, torch.cuda.graph(graph):
+            outputs = body(static)
+        trace.count_sync(dev)  # the capture synchronises the card first
+        trace.count("filter.graph.captures")
+        return cls(graph, static, outputs, counts), info
+
+    def replay(self, inputs: _FilterInputs) -> CBFStepInfo:
+        """Copy `inputs` into the buffers (device to device), replay, and
+        return copies of the outputs, which the next replay overwrites."""
+        with trace.span("filter.replay"):
+            for buf, t in zip(self.inputs, inputs):
+                if buf is not None:
+                    buf.copy_(t)
+            self.graph.replay()
+            for name, n in self.counts.items():
+                trace.count(name, n)
+            trace.count("filter.graph.replays")
+            return CBFStepInfo(*(t.clone() for t in self.outputs))
+
+
 class CBFSafetyFilter:
     """Batched CBF-QP filter over all envs at once.
 
@@ -175,7 +246,8 @@ class CBFSafetyFilter:
         self._pair_j = np.array([p[1] for p in pairs], np.int32)
         self._pi = torch.as_tensor(self._pair_i, dtype=torch.long, device=self.device)
         self._pj = torch.as_tensor(self._pair_j, dtype=torch.long, device=self.device)
-        self._centers_local = torch.as_tensor(self.approx.centers_local, device=self.device)
+        self._pair_idx = (self._pi.to(torch.int32), self._pj.to(torch.int32))  # K1's lists
+        self.centers_local = torch.as_tensor(self.approx.centers_local, device=self.device)
         self._offsets = torch.as_tensor(
             _STENCIL * np.array([cfg.dx, cfg.dy], np.float32), device=self.device
         )
@@ -186,6 +258,7 @@ class CBFSafetyFilter:
             [cfg.dx, cfg.dy, cfg.dx**2, cfg.dy**2, 4 * cfg.dx * cfg.dy],
             dtype=torch.float16, device=self.device,
         )
+        self._graphs: Dict[tuple, _FilterGraph] = {}  # the card's graphs, by input shapes
 
     def _wl_value(self) -> float:
         """The lambda penalty weight of every row (grouped mode's cross
@@ -378,8 +451,8 @@ class CBFSafetyFilter:
         else:
             rl_clamped, u_nom = self.rl_action_to_u(rl_actions, v, state.steering)
 
-        centers = circle_centers_world(self.approx, state.pos, psi)  # [B,N,C,2]
-        kins = center_kinematics(psi, v, state.steering, self._centers_local, self.l_r, self.l_wb)
+        centers = circle_centers_world(self.centers_local, state.pos, psi)  # [B,N,C,2]
+        kins = center_kinematics(psi, v, state.steering, self.centers_local, self.l_r, self.l_wb)
         (smL, gL, HL), (smR, gR, HR) = self._lane_terms(
             centers, state.path_id, state.idx_left, state.idx_right
         )
@@ -540,7 +613,49 @@ class CBFSafetyFilter:
         """Solve the batched CBF-QP and return safe (speed, steering)
         targets. `u_init` (the previous step's solution) warm-starts the
         Newton iteration. Grouped mode groups the agents of every env by
-        position first. `noise` and `generator` as in `assemble`."""
+        position first. `noise` and `generator` as in `assemble`.
+
+        CPU tensors run the body, `_filter_eager`. On the card the body is
+        one CUDA graph per shape of its inputs (`_FilterGraph`): the first
+        call of a shape runs the body and captures it, each later call
+        copies its inputs into the graph's buffers and replays it. The
+        observation noise is drawn here, in the body's order, and copied in
+        like an input. Either way the returned tensors are the call's own."""
+        if not state.pos.is_cuda:
+            return self._filter_eager(state, rl_actions, u_init, noise, generator)
+        cfg = self.cfg
+        if not cfg.is_obs_noise:
+            noise = None
+        elif noise is None:
+            noise = uniform(rl_actions.shape, generator, state.pos.device)
+        windowed = cfg.pd_topk_chunks == 0 and cfg.use_windowed_pseudo_distance
+        clf = cfg.nom_controller_type == "clf"
+        inputs = _FilterInputs(
+            state.pos, state.rot, state.speed, state.steering, state.path_id,
+            state.idx_left if windowed else None, state.idx_right if windowed else None,
+            state.short_term if clf else None, rl_actions, u_init, noise,
+        )
+        key = tuple(None if t is None else (t.shape, t.dtype, t.device) for t in inputs)
+        graph = self._graphs.get(key)
+        with torch.no_grad():
+            if graph is None:
+                graph, info = _FilterGraph.capture(
+                    lambda x: self._filter_eager(x, x.rl_actions, x.u_init, x.noise), inputs)
+                self._graphs[key] = graph
+                return info
+            return graph.replay(inputs)
+
+    def _filter_eager(
+        self,
+        state: WorldState,
+        rl_actions: Tensor,
+        u_init: Tensor | None = None,
+        noise: Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> CBFStepInfo:
+        """The filter's body, op by op (`filter_actions`' arguments): what
+        the CPU runs and the card's graphs hold. It makes no tensor from
+        host values, so nothing in it waits for the card."""
         cfg = self.cfg
         group_id = None
         if self.grouped:
@@ -555,6 +670,7 @@ class CBFSafetyFilter:
                 (self.a_max, self.rate_max),
                 n_iters=cfg.newton_iters, u_init=u_init, ws_cap=cfg.newton_ws_cap,
                 soft_iters=cfg.newton_soft_iters, soft_cap=cfg.newton_soft_cap,
+                pair_idx=self._pair_idx,
             )
         with trace.span("filter.finish"):
             solved = torch.isfinite(F) & torch.isfinite(u_star).all(-1).all(-1)

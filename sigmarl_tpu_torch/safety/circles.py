@@ -9,8 +9,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sigmarl_tpu_torch import trace
-
 
 @dataclass(frozen=True)
 class CircleApproximation:
@@ -34,13 +32,13 @@ class CircleApproximation:
 
 
 def circle_centers_world(
-    approx: CircleApproximation, pos: torch.Tensor, rot: torch.Tensor
+    centers_local: torch.Tensor, pos: torch.Tensor, rot: torch.Tensor
 ) -> torch.Tensor:
-    """Rotate local circle centers into the world frame.
-    pos [..., 2]; rot [...]. Returns [..., n_circles, 2]."""
-    local = torch.as_tensor(approx.centers_local, device=pos.device)
-    trace.count_sync(pos.device)  # a copy from pageable host memory
+    """Rotate local circle centers into the world frame. centers_local
+    [n_circles, 2] on pos's device (the filter's, made once: a tensor made
+    here per call would copy from pageable host memory); pos [..., 2];
+    rot [...]. Returns [..., n_circles, 2]."""
     c, s = torch.cos(rot)[..., None], torch.sin(rot)[..., None]
-    x = local[:, 0] * c - local[:, 1] * s
-    y = local[:, 0] * s + local[:, 1] * c
+    x = centers_local[:, 0] * c - centers_local[:, 1] * s
+    y = centers_local[:, 0] * s + centers_local[:, 1] * c
     return torch.stack([x, y], dim=-1) + pos[..., None, :]

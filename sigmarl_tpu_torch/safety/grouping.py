@@ -34,7 +34,6 @@ def group_agents_k_nearest(pos: Tensor, max_group_size: int) -> Tensor:
     K = int(math.ceil(N / max_group_size))
     dev = pos.device
     envs = torch.arange(B, device=dev)
-    big = torch.tensor(_BIG, dtype=pos.dtype, device=dev)
 
     # Farthest-point seeds: seed 0 is agent 0; seed k is the agent farthest
     # from its nearest chosen seed (chosen seeds themselves excluded).
@@ -43,11 +42,11 @@ def group_agents_k_nearest(pos: Tensor, max_group_size: int) -> Tensor:
     is_seed[:, 0] = True
     for k in range(1, K):
         d2 = _sq_dist(pos[:, :, None, :], pos[envs[:, None], seeds][:, None, :, :])  # [B,N,K]
-        d2 = torch.where(torch.arange(K, device=dev) < k, d2, big)
+        d2 = torch.where(torch.arange(K, device=dev) < k, d2, _BIG)
         d_min = torch.where(is_seed, -1.0, d2.min(-1).values)
         s = torch.argmax(d_min, dim=-1)
         seeds[:, k] = s
-        is_seed[envs, s] = True
+        is_seed.scatter_(1, s[:, None], True)
 
     centroids = pos[envs[:, None], seeds].clone()  # [B, K, 2]
     counts = torch.ones((B, K), dtype=torch.int32, device=dev)
@@ -57,7 +56,7 @@ def group_agents_k_nearest(pos: Tensor, max_group_size: int) -> Tensor:
     for i in range(N):
         free = group_id[:, i] < 0  # [B]
         p = pos[:, i]  # [B, 2]
-        d2 = torch.where(counts < max_group_size, _sq_dist(p[:, None, :], centroids), big)
+        d2 = torch.where(counts < max_group_size, _sq_dist(p[:, None, :], centroids), _BIG)
         g = torch.argmin(d2, dim=-1)  # [B]
         new_count = counts[envs, g] + 1
         c_g = centroids[envs, g]

@@ -27,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sigmarl_tpu_torch import trace
+from sigmarl_tpu_torch.device import constant
 
 Tensor = torch.Tensor
 
@@ -273,28 +273,30 @@ def kernel_inputs(
     u_hi: Tuple[float, float],
     u_init: Tensor | None = None,
     ws_cap: float = 3e6,
+    pair_idx: Tuple[Tensor, Tensor] | None = None,
 ):
     """The solve kernel's tensor inputs: (singles, pairs, u0, u_init,
     u_nom, pair_i, pair_j) with controls as [B, 2N] (x block, then y
     block), the starts clipped into the box and the pair lists int32 on
-    the controls' device."""
+    the controls' device: `pair_idx` where the caller holds them there
+    (the filter makes them once), else `device.constant`'s. Nothing here
+    copies from host memory once those exist, so nothing waits for the
+    card."""
     singles, pairs = pack_constraints(cons, ws_cap)
-    dev = u_nom.device
-    lo = torch.tensor(u_lo, dtype=u_nom.dtype, device=dev)
-    hi = torch.tensor(u_hi, dtype=u_nom.dtype, device=dev)
-    trace.count_sync(dev, 2)  # two copies from pageable host memory
 
     def blocks(u, clip=True):
+        x, y = u[..., 0], u[..., 1]
         if clip:
-            u = torch.minimum(torch.maximum(u, lo), hi)
-        return torch.cat([u[..., 0], u[..., 1]], dim=1).contiguous()
+            x, y = torch.clamp(x, u_lo[0], u_hi[0]), torch.clamp(y, u_lo[1], u_hi[1])
+        return torch.cat([x, y], dim=1).contiguous()
 
     u0 = blocks(u_nom)
     ui = u0 if u_init is None else blocks(u_init)
-    pair_i = torch.as_tensor(np.asarray(cons.pair_i), dtype=torch.int32, device=dev)
-    pair_j = torch.as_tensor(np.asarray(cons.pair_j), dtype=torch.int32, device=dev)
-    trace.count_sync(dev, 2)
-    return singles, pairs, u0, ui, blocks(u_nom, clip=False), pair_i, pair_j
+    if pair_idx is None:
+        dev = u_nom.device
+        pair_idx = tuple(constant(tuple(np.asarray(p).tolist()), torch.int32, dev)
+                         for p in (cons.pair_i, cons.pair_j))
+    return (singles, pairs, u0, ui, blocks(u_nom, clip=False)) + tuple(pair_idx)
 
 
 def solve_structured_qp(
@@ -309,6 +311,7 @@ def solve_structured_qp(
     ws_cap: float = 3e6,
     soft_iters: int = 0,
     soft_cap: float = 10.0,
+    pair_idx: Tuple[Tensor, Tensor] | None = None,
 ) -> Tuple[Tensor, Tensor]:
     """Projected damped Newton on the eliminated QP in block-sparse form.
 
@@ -317,13 +320,14 @@ def solve_structured_qp(
     capped geometrically from `soft_cap` up to `ws_cap` (kept only where
     they lower the full objective), then `n_iters` full-stiffness
     iterations. Weights and bounds are per control component (accel,
-    steering rate). Returns (u_star [B, N, 2], F(u_star) [B]).
+    steering rate); `pair_idx` as in `kernel_inputs`. Returns (u_star
+    [B, N, 2], F(u_star) [B]).
     """
     from sigmarl_tpu_torch.ops.qp import newton_solve
 
     N = u_nom.shape[1]
     u, F = newton_solve(
-        *kernel_inputs(cons, u_nom, u_lo, u_hi, u_init, ws_cap), w_u, u_lo, u_hi,
+        *kernel_inputs(cons, u_nom, u_lo, u_hi, u_init, ws_cap, pair_idx), w_u, u_lo, u_hi,
         n_iters=n_iters, ridge=ridge, soft_iters=soft_iters, soft_cap=soft_cap, ws_cap=ws_cap,
     )
     return torch.stack([u[:, :N], u[:, N:]], dim=-1), F

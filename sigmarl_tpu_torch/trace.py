@@ -10,6 +10,9 @@ launches) attributed to the layer where they happen.
   tracing is off it is a shared no-op: one read of a flag.
 - `count(name, n)` counts always; while a span is open it also adds to the
   innermost span's counts.
+- `diverted()` sends the counts made inside it to a dict of its own: for a
+  CUDA graph's capture, whose counts (the launches it holds) each replay
+  adds instead.
 - `snapshot()` returns the aggregates and the counts; `reset()` clears them.
 
 Tracing is on while a `torch.profiler` session records, or after
@@ -25,6 +28,7 @@ written to disk.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
@@ -47,14 +51,15 @@ else:  # a PyTorch without the flag: ask the profiler itself
 
 class _State:
     """The process's tracing state: the `enable()` switch, the open spans,
-    the aggregates {name: [calls, total_ns, self_ns, counts]} and the
-    counts {name: n}."""
+    the aggregates {name: [calls, total_ns, self_ns, counts]}, the counts
+    {name: n} and the innermost `diverted()` sink (None outside one)."""
 
     def __init__(self):
         self.enabled = False
         self.stack = []
         self.spans = {}
         self.counts = {}
+        self.sink = None
 
 
 _state = _State()
@@ -147,7 +152,11 @@ def _decorated(name: str, fn):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add `n` to the count `name`, and to the innermost open span's."""
+    """Add `n` to the count `name`, and to the innermost open span's;
+    inside `diverted()`, to its dict alone."""
+    if _state.sink is not None:
+        _state.sink[name] = _state.sink.get(name, 0) + n
+        return
     _state.counts[name] = _state.counts.get(name, 0) + n
     if _state.stack:
         counts = _state.stack[-1].agg[3]
@@ -159,6 +168,17 @@ def count_sync(device: torch.device, n: int = 1) -> None:
     computation waits for nothing."""
     if device.type == "cuda":
         count(SYNCS, n)
+
+
+@contextlib.contextmanager
+def diverted():
+    """Count inside into the dict this yields, and nowhere else."""
+    sink, prev = {}, _state.sink
+    _state.sink = sink
+    try:
+        yield sink
+    finally:
+        _state.sink = prev
 
 
 def enable() -> None:

@@ -54,7 +54,7 @@ def _fp16_distances(cbf, state) -> torch.Tensor:
     from sigmarl_tpu_torch.ops.boundary import pseudo_distance_stencil
     from sigmarl_tpu_torch.safety.circles import circle_centers_world
 
-    centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+    centers = circle_centers_world(cbf.centers_local, state.pos, state.rot)
     B, N, C = centers.shape[:3]
     q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id, state.idx_left, state.idx_right)
     d_left, d_right = pseudo_distance_stencil(q, pid, cbf.tables.left_seg, cbf.tables.right_seg,

@@ -698,7 +698,7 @@ def test_stencil_kernel_at_one_and_five_circles_and_windows(C, window):
     env, cbf, state, g = _clf_live(4, 32, C, **kw)
     from sigmarl_tpu_torch.safety.circles import circle_centers_world
 
-    centers = circle_centers_world(cbf.approx, state.pos, state.rot)
+    centers = circle_centers_world(cbf.centers_local, state.pos, state.rot)
     q, pid, cl, cr = cbf.stencil_inputs(centers, state.path_id, state.idx_left, state.idx_right)
     assert q.shape[1] == 9 * C and cl.shape[1] == (6 if window else 3)
     before = k2_launches()
@@ -1025,7 +1025,9 @@ def test_the_program_counts_each_host_sync_in_its_layer(batch):
     """One main-path filtered step (a decision at B=1, a rollout step at
     B=1024) under `trace.enable()`: the `syncs` the program counts per span
     are the waits sync debug mode reports, each in the layer whose file the
-    warning names; each kernel's launch falls in its phase of the filter."""
+    warning names: one, the env step's read of the resetting envs; the
+    filter, a replay of its graph, has none, and each kernel's launch falls
+    in its span `filter.replay`."""
     from collections import Counter
 
     from sigmarl_tpu_torch import trace
@@ -1051,13 +1053,16 @@ def test_the_program_counts_each_host_sync_in_its_layer(batch):
     warned = Counter(next((layer for d, layer in SYNC_LAYERS.items() if site.startswith(d)), site)
                      for site in sites)
     assert +counted == warned, (sites, spans)
+    assert warned == {"env_step": 1} and counted["filter"] == 0, sites
 
     def launches(phase, kernel):  # in the phase and its sub-spans
         return sum(s["counts"].get(kernel, 0) for name, s in spans.items()
                    if name == phase or name.startswith(phase + "."))
 
-    assert launches("filter.solve", "k1.launches") == 1
-    assert launches("filter.assemble", "k2.launches") == 1
+    assert launches("filter.replay", "k1.launches") == 1
+    assert launches("filter.replay", "k2.launches") == 1
+    assert launches("filter", "k1.launches") == launches("filter", "k2.launches") == 1
+    assert spans["filter.replay"]["counts"]["filter.graph.replays"] == 1
 
 
 def test_a_span_under_graph_capture_records_nothing():
@@ -1084,3 +1089,115 @@ def test_a_span_under_graph_capture_records_nothing():
     trace.reset()
     assert "captured" not in spans and spans["replay"]["calls"] == 1
     assert torch.equal(x.cpu(), torch.ones(4))
+
+
+# The filter's graph at the main path's budget (3+5) and batches (the
+# latency path's 1, 16, the rollout's 1024) and at the trainer's (2+15).
+GRAPH_CASES = [(1, 5, 3), (16, 5, 3), (1024, 5, 3), (1024, 15, 2)]
+
+
+@pytest.fixture(scope="module")
+def live_inputs():
+    """`get(batch)`: the main path's env at `batch` and the (state, action)
+    of four of its filtered steps (the third to the sixth from the all-zero
+    state), built on first use."""
+    from sigmarl_tpu_torch.bench import main_path, policy_actions
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    built = {}
+
+    def get(batch):
+        if batch not in built:
+            env, cbf, policy, gen, state, obs = main_path(batch, N, "cuda")
+            steps = []
+            for i in range(6):
+                act = policy_actions(env, policy, obs, gen)
+                if i >= 2:
+                    steps.append((state, act))
+                state, obs, *_ = cbf_filtered_step(env, cbf, state, act, generator=gen)
+            built[batch] = env, steps
+        return built[batch]
+
+    return get
+
+
+def _filter_call(fn, steps, i, warm):
+    """`fn` (the filter or its eager body) at step i's state and action,
+    with its warm start if `warm`, drawing from a generator seeded i."""
+    state, act = steps[i]
+    g = torch.Generator(device="cuda").manual_seed(i)
+    return fn(state, act, u_init=state.cbf_u_prev if warm else None, generator=g)
+
+
+def _equal_bit_for_bit(got, want):
+    from sigmarl_tpu_torch.safety.cbf_qp import CBFStepInfo
+
+    for name, a, b in zip(CBFStepInfo._fields, got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True, msg=name)
+
+
+@pytest.mark.parametrize("inputs", ["cold", "warm", "obs_noise"])
+@pytest.mark.parametrize("batch, iters, soft", GRAPH_CASES)
+def test_the_filters_graph_replays_its_eager_body(live_inputs, batch, iters, soft, inputs):
+    """Three calls of one shape: one capture (the first call's result is
+    its warm-up's) and two replays; K1 and K2 launch once a call; every
+    returned `CBFStepInfo` equals the eager body's at its inputs bit for
+    bit, after the later replays too, and no two calls' tensors share
+    memory; a fourth call, a replay, waits for nothing (sync debug mode
+    "error")."""
+    from sigmarl_tpu_torch import trace
+
+    env, steps = live_inputs(batch)
+    noise = inputs == "obs_noise"
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=N, newton_iters=iters, newton_soft_iters=soft,
+                                    is_obs_noise=noise, obs_noise_level=0.1 if noise else 0.0),
+                          env.cfg, env.tables, device="cuda")
+    warm = inputs != "cold"
+    trace.reset()
+    before = launch_counts()
+    outs = [_filter_call(cbf.filter_actions, steps, i, warm) for i in range(3)]
+    torch.cuda.synchronize()
+    assert launch_counts(before) == {"qp_newton": 3, "boundary_stencil": 3, "spawn_place": 0}
+    counts = trace.snapshot()["counts"]
+    trace.reset()
+    assert counts.get("filter.graph.captures") == 1 and counts.get("filter.graph.replays") == 2
+    assert len(cbf._graphs) == 1
+    memory = [{t.untyped_storage().data_ptr() for t in out} for out in outs]
+    assert all(not (memory[a] & memory[b]) for a, b in ((0, 1), (1, 2), (0, 2)))
+    for i, out in enumerate(outs):
+        _equal_bit_for_bit(out, _filter_call(cbf._filter_eager, steps, i, warm))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _filter_call(cbf.filter_actions, steps, 3, warm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _equal_bit_for_bit(out, _filter_call(cbf._filter_eager, steps, 3, warm))
+    assert trace.snapshot()["counts"].get("filter.graph.replays") == 1
+    trace.reset()
+
+
+@pytest.mark.parametrize("mode", ["grouped", "decentralized", "clf", "windowed", "fp16_parity"])
+def test_every_filter_mode_is_captured(live_inputs, mode):
+    """Each filter mode is one graph on the card (none stays eager): two
+    calls, one capture and one replay, each equal to the eager body bit
+    for bit, with K1 and K2 once a call."""
+    from sigmarl_tpu_torch import trace
+
+    env, steps = live_inputs(16)
+    cfg = dict(clf=dict(nom_controller_type="clf"),
+               windowed=dict(pd_topk_chunks=0, use_windowed_pseudo_distance=True),
+               fp16_parity=dict(fp16_parity=True)).get(mode, {})
+    kw = dict(grouped=dict(max_group_size=4), decentralized=dict(decentralized=True)).get(mode, {})
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=N, **cfg), env.cfg, env.tables, device="cuda", **kw)
+    trace.reset()
+    before = launch_counts()
+    outs = [_filter_call(cbf.filter_actions, steps, i, True) for i in range(2)]
+    torch.cuda.synchronize()
+    assert launch_counts(before) == {"qp_newton": 2, "boundary_stencil": 2, "spawn_place": 0}
+    counts = trace.snapshot()["counts"]
+    trace.reset()
+    assert counts.get("filter.graph.captures") == 1 and counts.get("filter.graph.replays") == 1
+    for i, out in enumerate(outs):
+        _equal_bit_for_bit(out, _filter_call(cbf._filter_eager, steps, i, True))

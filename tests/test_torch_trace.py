@@ -1,7 +1,8 @@
 """The port's tracing (`sigmarl_tpu_torch/trace.py`) on the CPU: nothing
 recorded and no profiler range opened while it is off, spans' calls,
-totals and self times and the counts' attribution while it is on, and a
-filtered step's spans on the profiler's timeline."""
+totals and self times and the counts' attribution while it is on, counts
+diverted from a graph's capture, and a filtered step's spans on the
+profiler's timeline."""
 
 import pytest
 import torch
@@ -129,6 +130,24 @@ def test_a_span_closes_on_an_exception(fresh, no_ranges):
 def test_count_sync_counts_only_on_a_card(fresh):
     trace.count_sync(torch.device("cpu"), 3)
     assert "syncs" not in trace.snapshot()["counts"]
+
+
+def test_diverted_counts_go_to_its_dict_alone(fresh, no_ranges):
+    """Counts inside `diverted()` (a graph's capture) reach its dict and
+    neither the process's counts nor the open span's; outside it they
+    count as before, nested sinks included."""
+    trace.enable()
+    with trace.span("outer"):
+        with trace.diverted() as sink:
+            trace.count("k1.launches")
+            with trace.diverted() as inner:
+                trace.count("k2.launches", 2)
+            trace.count("k1.launches", 2)
+        trace.count("k2.launches")
+    assert sink == {"k1.launches": 3} and inner == {"k2.launches": 2}
+    snap = trace.snapshot()
+    assert snap["counts"] == {"k2.launches": 1}
+    assert snap["spans"]["outer"]["counts"] == {"k2.launches": 1}
 
 
 def test_the_profiler_flag_follows_a_session(fresh):
