@@ -4,11 +4,12 @@ phase, on the card.
 
     python3 scripts/profile_qp_phases.py [--source FILE ...] [--input {main,clf}]
 
-Sets up the main path as chip_smoke.py does (cpm_entire, N=15, B=1024,
-centralized filter), warms it up and captures K1's input; with `--input
-clf`, the same width in testing mode with the CLF nominal controller (its
-two CLF rows per agent active), as chip_smoke.py's wide CLF evaluation
-captures it, 4 filtered steps after a reset. Then, for each
+Sets up the main path (`bench.py::main_path`: cpm_entire, N=15, B=1024,
+centralized filter), warms it up for 8 filtered steps and captures K1's
+input; with `--input clf`, the same width in testing mode with the CLF
+nominal controller (its two CLF rows per agent active), as the wide CLF
+evaluation of `utils/card_checks.py::wide_clf_setup` runs it, 4 filtered
+steps after a reset. Then, for each
 kernel source (default: this checkout's), it builds an instrumented copy
 in `sigmarl_tpu_torch/_build/`: every function of the source that holds
 phase markers (comment lines `// ---- <phase> ...`, each placed right
@@ -39,8 +40,6 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-
-import chip_smoke as cs  # noqa: E402
 
 _PRELUDE = r"""
 __device__ unsigned long long __qp_cycles[64];
@@ -173,19 +172,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_qp_phases: no CUDA device is available", file=sys.stderr)
         return 1
-    cs.import_port()
+    from sigmarl_tpu_torch.device import nvidia_smi_line
     from sigmarl_tpu_torch.ops import build as b
     from sigmarl_tpu_torch.ops.qp import newton_solve
+    from sigmarl_tpu_torch.utils import card_checks as cc
 
     sources = args.source or [os.path.join(b.CSRC, "qp_newton.cu")]
-    smi = cs.nvidia_smi_line()
+    smi = nvidia_smi_line()
     if args.input == "main":
-        env, cbf, policy, gen, state, obs = cs.setup_main_path("cuda")
-        state, obs, _, _ = cs.rollout(env, cbf, policy, gen, state, obs, cs.WARMUP_STEPS)
-        qp_args, qp_static, _ = cs.capture_kernel_inputs(env, cbf, policy, gen, state, obs)
+        env, cbf, policy, gen, state, obs, _ = cc.warm_main_path()
+        qp_args, qp_static, _ = cc.capture_kernel_inputs(env, cbf, policy, gen, state, obs)
     else:
-        env, cbf = cs.wide_clf_setup()
-        qp_args, qp_static = cs.clf_qp_capture(cbf, cs.filtered_state(env, cbf))
+        env, cbf = cc.wide_clf_setup()
+        qp_args, qp_static = cc.clf_qp_capture(cbf, cc.filtered_state(env, cbf))
     B = qp_args[2].shape[0]
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -214,11 +213,11 @@ def main() -> int:
     for idx, src in enumerate(sources):
         plain_lib, prof_lib, names = build(src, idx)
         with b.swapped_library("qp_newton", plain_lib):
-            ms = cs.cuda_ms_windows(solver(B), reps=10, windows=7, queued=True)
+            ms = cc.cuda_ms_windows(solver(B), reps=10, windows=7, queued=True)
             # Batches of 1, 2 and 4 blocks per SM: flat times mean each
             # block's own latency sets the time, times that grow with the
             # batch mean the SMs' issue rate does.
-            scaling = {n: cs.cuda_ms_windows(solver(n), reps=10, windows=5, queued=True)["ms"]
+            scaling = {n: cc.cuda_ms_windows(solver(n), reps=10, windows=5, queued=True)["ms"]
                        for n in (sms, 2 * sms, 4 * sms) if n <= B}
         cyc, cnt = phase_cycles(prof_lib, B)
         cyc1, _ = phase_cycles(prof_lib, min(sms, B))

@@ -4,7 +4,8 @@ on the card.
 
     python3 scripts/profile_torch_training.py
 
-Configurations, `chip_smoke.py`'s training constants:
+Configurations, `sigmarl_tpu_torch/utils/card_checks.py`'s training
+constants:
 
 - informed (`INFORMED_TRAINING`): CBF-informed training at the paper's
   reward-sweep setting (cpm_mixed, N=4, B=32, T=128, 30 epochs of minibatch
@@ -34,14 +35,15 @@ import os
 import sys
 import tempfile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-import chip_smoke as cs  # noqa: E402
+from sigmarl_tpu_torch.utils import card_checks as cc  # noqa: E402
 
 CONFIGS = {
-    "informed": cs.INFORMED_TRAINING, "filtered": cs.FILTERED_TRAINING,
-    "xpmarl": cs.XPMARL_TRAINING, "opponent": cs.OPPONENT_TRAINING,
-    "wide": cs.WIDE_XPMARL_TRAINING,
+    "informed": cc.INFORMED_TRAINING, "filtered": cc.FILTERED_TRAINING,
+    "xpmarl": cc.XPMARL_TRAINING, "opponent": cc.OPPONENT_TRAINING,
+    "wide": cc.WIDE_XPMARL_TRAINING,
 }
 
 
@@ -99,10 +101,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device is available", file=sys.stderr)
         return 1
-    cs.import_port()
-    smi = cs.nvidia_smi_line()
-    os.makedirs(os.path.join(cs.HERE, "outputs"), exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="profile_", dir=os.path.join(cs.HERE, "outputs")) as wd:
+    from sigmarl_tpu_torch.device import nvidia_smi_line
+
+    smi = nvidia_smi_line()
+    os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="profile_", dir=os.path.join(ROOT, "outputs")) as wd:
         results = [profile_config(n, smi, wd) for n in CONFIGS]
     print(smi)
     for r in results:

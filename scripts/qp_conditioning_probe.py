@@ -9,11 +9,11 @@ package and its PyTorch port. Runs on the CPU.
    `jax.jit` and under `jax.disable_jit`, and the port's plain solver
    against JAX in float64 after one iteration.
 2. A non-optimal fixed point: on a B=8 cpm_entire input built by the port
-   (seed 3, three filtered steps with uniform random actions, as
-   chip_smoke.py's small-input check builds it), the objective the 3+5
-   solve reaches per env, what 60 more stiff iterations reach from there
-   in float32 and float64 (port and JAX), and the optimum of a plain
-   60-iteration solve.
+   (seed 3, three filtered steps with uniform random actions, as the card
+   test `test_main_path_step_at_b8_on_the_card_matches_the_cpu` builds
+   it), the objective the 3+5 solve reaches per env, what 60 more stiff
+   iterations reach from there in float32 and float64 (port and JAX), and
+   the optimum of a plain 60-iteration solve.
 
 Prints one JSON line at the end.
 """

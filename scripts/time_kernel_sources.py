@@ -4,9 +4,9 @@ in one process, on the main path's input.
 
     python3 scripts/time_kernel_sources.py [--qp FILE ...] [--stencil FILE ...]
 
-Sets up the main path as chip_smoke.py does (cpm_entire, N=15, B=1024,
-centralized filter at the 3+5 budget), warms it up and captures the input of
-both kernels. Each `--qp` source is built in place of `csrc/qp_newton.cu`
+Sets up the main path (`bench.py::main_path`: cpm_entire, N=15, B=1024,
+centralized filter at the 3+5 budget), warms it up for 8 filtered steps and
+captures the input of both kernels. Each `--qp` source is built in place of `csrc/qp_newton.cu`
 and each `--stencil` source in place of `csrc/boundary_stencil.cu` (same C
 interface; default: this checkout's), then run through the port's wrappers:
 
@@ -14,7 +14,7 @@ interface; default: this checkout's), then run through the port's wrappers:
   and 1 iterations and F at 30 and at the 3+5 budget, K2 in both modes;
 - timed in two rounds, the second in reverse order (A, B, B, A), each
   time a median of 5 CUDA-event windows queued behind a spin on the card
-  (`chip_smoke.cuda_ms`), so the card's time alone.
+  (`utils/card_checks.py::cuda_ms`), so the card's time alone.
 
 To compare with an earlier commit, unpack its source into a directory that
 .gitignore lists (`git show <commit>:sigmarl_tpu_torch/csrc/qp_newton.cu`)
@@ -32,8 +32,6 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke as cs  # noqa: E402
-
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -45,20 +43,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_kernel_sources: no CUDA device is available", file=sys.stderr)
         return 1
-    cs.import_port()
+    from sigmarl_tpu_torch.device import nvidia_smi_line
     from sigmarl_tpu_torch.ops import build as b
     from sigmarl_tpu_torch.ops.boundary import (
         pseudo_distance_stencil, pseudo_distance_stencil_reference,
     )
     from sigmarl_tpu_torch.ops.qp import newton_solve, newton_solve_reference
+    from sigmarl_tpu_torch.utils import card_checks as cc
 
     kinds = {"qp_newton": args.qp, "boundary_stencil": args.stencil}
     if not any(kinds.values()):
         kinds = {name: [os.path.join(b.CSRC, src)] for name, src in b.SOURCES.items()}
-    smi = cs.nvidia_smi_line()
-    env, cbf, policy, gen, state, obs = cs.setup_main_path("cuda")
-    state, obs, _, _ = cs.rollout(env, cbf, policy, gen, state, obs, cs.WARMUP_STEPS)
-    qa, qs, pd = cs.capture_kernel_inputs(env, cbf, policy, gen, state, obs)
+    smi = nvidia_smi_line()
+    env, cbf, policy, gen, state, obs, _ = cc.warm_main_path()
+    qa, qs, pd = cc.capture_kernel_inputs(env, cbf, policy, gen, state, obs)
     q, pid, lseg, rseg, _, _ = pd
 
     def k1_errors():
@@ -67,7 +65,7 @@ def main() -> int:
             u_k, F_k = newton_solve(*qa, *qs, it, soft_iters=soft)
             u_p, F_p = newton_solve_reference(*qa, *qs, it, soft_iters=soft)
             key = f"{soft}+{it}"
-            out[key] = (float((u_k - u_p).abs().max()) if it <= 1 else cs.rel_gap(F_k, F_p))
+            out[key] = (float((u_k - u_p).abs().max()) if it <= 1 else cc.rel_gap(F_k, F_p))
         return out
 
     def k2_errors():
@@ -96,7 +94,7 @@ def main() -> int:
     for kind, src, lib in jobs + jobs[::-1]:
         fn, reps = calls[kind]
         with b.swapped_library(kind, lib):
-            t = cs.cuda_ms_windows(fn, reps=reps, windows=5, queued=True)
+            t = cc.cuda_ms_windows(fn, reps=reps, windows=5, queued=True)
         results[(kind, src)]["ms"].append(t["ms"])
         print(f"{kind} {src}: {t['ms']:.4f} ms (median of 5 windows, {t['ms_min']:.4f} to "
               f"{t['ms_max']:.4f})", flush=True)

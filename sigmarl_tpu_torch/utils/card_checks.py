@@ -1,10 +1,14 @@
-"""Checks of the port on the card that `chip_smoke.py` and the card tests
-(`tests/test_torch_gpu.py`) share: K1's inputs with near-zero CLF rows,
-one testing-mode, CLF-filtered, fp16-parity step on the card against the
-same step on the CPU, the challenge buffer's record and replay steps on
-the card against the CPU, a step whose reset spawn is compacted on
-the card against the CPU, and the trainer's update as a graph replay
-against the same update run eagerly. They need a CUDA device."""
+"""The port's checks and measurements on the card, shared by the card
+tests (`tests/test_torch_gpu.py`), the card run `chip_smoke.py` and the
+profiling scripts under `scripts/`: the training configurations they run,
+CUDA-event timers, the main path's inputs to K1 and K2, K1's inputs with
+near-zero CLF rows, one testing-mode, CLF-filtered, fp16-parity step on
+the card against the same step on the CPU, the challenge buffer's record
+and replay steps on the card against the CPU, a step whose reset spawn is
+compacted on the card against the CPU, the trainer's update as a graph
+replay against the same update run eagerly, and a sharded training
+iteration against the unsharded one. The configurations import on any
+device; the checks and timers need a CUDA device."""
 
 from __future__ import annotations
 
@@ -16,6 +20,41 @@ import numpy as np
 import torch
 
 from sigmarl_tpu_torch.safety.qp import StructuredConstraintSet
+
+# The training configurations of the card run (`chip_smoke.py`) and
+# `scripts/profile_torch_training.py`. The informed one is the paper's
+# reward sweep (`sigmarl_tpu/eval/papers.py:278-285`), observation noise on
+# as `Parameters` has it; the XP-MARL one the ICRA'25 priority comparison
+# (`papers.py:105-111`), learned priority; opponent modeling the same
+# setting with its pad instead.
+INFORMED_TRAINING = dict(
+    scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=32, dt=0.1, max_steps=128,
+    num_epochs=30, minibatch_size=512, is_use_mtv_distance=False,
+    rew_method="cbf", h_nom=0.2, is_using_cbf_training=True, is_solve_qp=False,
+)
+XPMARL_TRAINING = dict(
+    scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=32, dt=0.1, max_steps=128,
+    num_epochs=30, minibatch_size=512, is_use_mtv_distance=False,
+    is_using_prioritized_marl=True, prioritization_method="marl",
+)
+OPPONENT_TRAINING = {**XPMARL_TRAINING, "is_using_prioritized_marl": False,
+                     "is_using_opponent_modeling": True}
+# Learned priority with a CBF-filtered rollout at the main path's width, on
+# the `Parameters` defaults (MTV distance and observation noise on).
+WIDE_XPMARL_TRAINING = dict(
+    scenario_type="cpm_entire", n_agents=15, num_vmas_envs=1024, dt=0.1, max_steps=16,
+    num_epochs=1, minibatch_size=4096, is_using_prioritized_marl=True,
+    prioritization_method="marl", is_communication_noise=True, is_using_cbf_training=True,
+    is_solve_qp=True, is_apply_cbf_action=True, is_using_centralized_cbf=True,
+)
+# CBF-filtered training at the main path's width: the benchmark's
+# `cpm_entire_n15_cbf_train` configuration.
+FILTERED_TRAINING = dict(
+    scenario_type="cpm_entire", n_agents=15, num_vmas_envs=1024, dt=0.1, max_steps=16,
+    num_epochs=1, minibatch_size=4096, is_use_mtv_distance=False, is_obs_noise=False,
+    rew_method="cbf", is_using_cbf_training=True, is_solve_qp=True, is_apply_cbf_action=True,
+    is_using_centralized_cbf=True,
+)
 
 # The CLF errors that `near_zero_clf_rows` puts in: rows of norm at most 1e-6.
 NEAR_ZERO_ERRORS = (0.0, 1e-9, -1e-9, 1e-7, -1e-7, 5e-7, -5e-7, 1e-6)
@@ -46,6 +85,126 @@ def near_zero_clf_rows(cons: StructuredConstraintSet, lam_clf: float,
     A_s[:, :, -1, 0] = torch.where(pick, e[..., 1], A_s[:, :, -1, 0])
     b_s[:, :, -2:] = torch.where(pick[..., None], -lam_clf / 2 * e * e, b_s[:, :, -2:])
     return dataclasses.replace(cons, A_s=A_s, b_s=b_s)
+
+
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds per call of `fn` over `reps` back-to-back calls on
+    the card (CUDA events), after one call to warm up. A call that runs
+    shorter on the card than it
+    costs the host to launch (a wrapper call costs tens of microseconds)
+    is then timed at the host's launch rate. With `queued`, a spin of ~50
+    ms on the card goes first, so the host queues the calls while the card
+    is busy and the window times the card's work alone."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_windows(fn, reps: int, windows: int = 7, queued: bool = False) -> dict:
+    """Median, least and largest of `windows` CUDA-event windows of `reps`
+    calls each (milliseconds per call)."""
+    times = sorted(cuda_ms(fn, reps, queued=queued) for _ in range(windows))
+    return dict(ms=times[len(times) // 2], ms_min=times[0], ms_max=times[-1])
+
+
+def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| / (1 + |b|), in float64."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+def rollout(env, cbf, policy, gen, state, obs, steps: int):
+    """`steps` steps of the main path's loop (`bench.filtered_step`);
+    returns the final state and obs, and whether obs, rewards and u*
+    stayed finite."""
+    from sigmarl_tpu_torch.bench import filtered_step
+
+    finite = torch.ones((), dtype=torch.bool, device=obs.device)
+    for _ in range(steps):
+        state, obs, rew, _ = filtered_step(env, cbf, policy, state, obs, gen)
+        finite &= torch.isfinite(obs).all() & torch.isfinite(rew).all()
+        finite &= torch.isfinite(state.cbf_u_prev).all()
+    return state, obs, bool(finite)
+
+
+def warm_main_path(batch: int = 1024, n_agents: int = 15, steps: int = 8):
+    """The main path on the card (`bench.main_path`, 3+5) after `steps`
+    filtered steps from the all-zero state: (env, filter, policy,
+    generator, state, obs, whether the warm-up stayed finite)."""
+    from sigmarl_tpu_torch.bench import main_path
+
+    env, cbf, policy, gen, state, obs = main_path(batch, n_agents, "cuda")
+    return (env, cbf, policy, gen, *rollout(env, cbf, policy, gen, state, obs, steps))
+
+
+def qp_capture(cbf, state, act, group_id=None):
+    """K1's inputs and static arguments at this state and action."""
+    from sigmarl_tpu_torch.safety.qp import kernel_inputs
+
+    cfg = cbf.cfg
+    cons, u_nom, _, _ = cbf.assemble(state, act, group_id)
+    args = kernel_inputs(cons, u_nom, (cbf.a_min, cbf.rate_min), (cbf.a_max, cbf.rate_max),
+                         state.cbf_u_prev, cfg.newton_ws_cap)
+    static = ((cfg.w_u_acc, cfg.w_u_steer), (cbf.a_min, cbf.rate_min),
+              (cbf.a_max, cbf.rate_max))
+    return args, static
+
+
+def capture_kernel_inputs(env, cbf, policy, gen, state, obs):
+    """The inputs the main path gives both kernels at this state: K1's
+    arguments and static arguments, and K2's arguments."""
+    from sigmarl_tpu_torch.bench import policy_actions
+    from sigmarl_tpu_torch.safety.circles import circle_centers_world
+
+    qp_args, qp_static = qp_capture(cbf, state, policy_actions(env, policy, obs, gen))
+    centers = circle_centers_world(cbf.centers_local, state.pos, state.rot)
+    q, pid, chunks_l, chunks_r = cbf.stencil_inputs(centers, state.path_id)
+    pd_args = (q, pid, env.tables.left_seg, env.tables.right_seg, chunks_l, chunks_r)
+    return qp_args, qp_static, pd_args
+
+
+def filtered_state(env, cbf, steps: int = 4):
+    """A live state of `env` after a reset and `steps` filtered steps with
+    (0.5, 0) nominal actions, for capturing the kernels' inputs."""
+    from sigmarl_tpu_torch.safety.wrappers import cbf_filtered_step
+
+    gen = torch.Generator(device=env.device).manual_seed(1)
+    act = torch.zeros((env.batch_dim, env.n_agents, 2), device=env.device)
+    act[..., 0] = 0.5
+    state, _ = env.reset(generator=gen)
+    for _ in range(steps):
+        state, *_ = cbf_filtered_step(env, cbf, state, act, generator=gen)
+    return state
+
+
+def wide_clf_setup():
+    """The env and filter of the wide CLF evaluation: cpm_entire, N=15,
+    B=1024, testing mode, the CLF controller, centralized, 3+5 budget."""
+    from sigmarl_tpu_torch import CBFConfig, CBFSafetyFilter, Parameters, make_env
+
+    p = Parameters(scenario_type="cpm_entire", n_agents=15, num_vmas_envs=1024, dt=0.1,
+                   max_steps=1_000_000, is_use_mtv_distance=False, is_obs_noise=False,
+                   is_testing_mode=True, is_using_cbf_testing=True, nom_controller_type="clf",
+                   device="cuda")
+    env = make_env(p)
+    cbf = CBFSafetyFilter(CBFConfig(n_agents=15, nom_controller_type="clf", newton_iters=5,
+                                    newton_soft_iters=3), env.cfg, env.tables, device=env.device)
+    return env, cbf
+
+
+def clf_qp_capture(cbf, state):
+    """K1's inputs at a CLF-filtered state (the nominal action does not
+    depend on the RL action)."""
+    B, N = state.pos.shape[:2]
+    return qp_capture(cbf, state, torch.zeros((B, N, 2), device=state.pos.device))
 
 
 def _fp16_distances(cbf, state) -> torch.Tensor:
@@ -392,24 +551,6 @@ def update_graph_vs_eager(graph_tr, eager_tr, state, generator: torch.Generator,
     )
     return dict(equal=equal, max_abs_diff=diff, eager_s=eager_s, graph_s=graph_s, syncs=syncs,
                 stats={k: float(v) for k, v in g_stats.items()}, state=nxt)
-
-
-def launches_per_update(tr) -> int | None:
-    """The CUDA kernels, copies and fills of one minibatch update: one
-    eager run of the trainer's `UpdateProgram.step` under
-    `torch.profiler` (None where the profiler sees no device activity).
-    The step changes the networks: call it when they are no longer
-    compared."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    tr.program.row.zero_()  # the step reads the table's first row
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tr.program.step()
-        torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return n or None
 
 
 def _flat_parameters(state) -> torch.Tensor:

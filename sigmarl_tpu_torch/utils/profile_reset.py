@@ -3,11 +3,9 @@ syncs and its time, compacted against full width.
 
     python -m sigmarl_tpu_torch.utils.profile_reset [--steps 64] [--windows 7]
 
-(from the root of a checkout: it drives the main path through that
-checkout's `chip_smoke.py`.)
-
-Sets up the main path as chip_smoke.py does (cpm_entire, N=15, B=1024,
-centralized filter at 3+5, the 3x256 policy from seed 0), warms up, then:
+Sets up the main path (`bench.py::main_path`: cpm_entire, N=15, B=1024,
+centralized filter at 3+5, the 3x256 policy from seed 0), warms up for 8
+filtered steps, then:
 
 1. runs `--steps` filtered steps and prints how many envs reset in each
    (the done envs: on cpm_entire in training a reset is a whole env) and
@@ -15,7 +13,7 @@ centralized filter at 3+5, the 3x256 policy from seed 0), warms up, then:
    width);
 2. counts the host syncs of one filtered step, and names where those of
    its filter, of its env step and of one reset in each branch wait
-   (`chip_smoke.host_syncs`);
+   (`device.py::host_syncs`);
 3. on one seeded mask of about 23 % of the envs, times `apply_reset`
    compacted and at full width in turns (compacted, full, full,
    compacted): the host clock around `--windows` windows of 5 calls with
@@ -30,14 +28,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import statistics
 import sys
 import time
 
 REPS = 5
-# The checkout's root, which holds chip_smoke.py.
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+N_AGENTS, BATCH, WARMUP_STEPS = 15, 1024, 8
+# The share of envs that reset in one step of the main path (the JAX
+# package's measure, `scripts/measure_resets.py`).
+RESET_SHARE = 0.23
 
 
 def traced(fn):
@@ -85,48 +84,46 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_reset: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
-
-    cs.import_port()
     from sigmarl_tpu_torch import cbf_filtered_step
+    from sigmarl_tpu_torch.bench import filtered_step, policy_actions
+    from sigmarl_tpu_torch.device import host_syncs, nvidia_smi_line
     from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, compact_slots
+    from sigmarl_tpu_torch.utils.card_checks import warm_main_path
 
-    smi = cs.nvidia_smi_line()
-    env, cbf, policy, gen, state, obs = cs.setup_main_path("cuda")
-    state, obs, _, _ = cs.rollout(env, cbf, policy, gen, state, obs, cs.WARMUP_STEPS)
-    slots = compact_slots(cs.BATCH, False)
+    smi = nvidia_smi_line()
+    env, cbf, policy, gen, state, obs, _ = warm_main_path(BATCH, N_AGENTS, WARMUP_STEPS)
+    slots = compact_slots(BATCH, False)
 
-    cs.zero_reset_branches(env)
+    before = (env.reset_steps, env.compact_reset_steps, env.full_reset_steps)
     resetting = []
     for _ in range(args.steps):
-        act = cs.policy_actions(env, policy, obs, gen)
-        state, obs, _, done, _ = cbf_filtered_step(env, cbf, state, act, generator=gen)
+        state, obs, _, done = filtered_step(env, cbf, policy, state, obs, gen)
         resetting.append(int(done.sum()))
-    branches = cs.reset_branches(env)
-    shares = sorted(n / cs.BATCH for n in resetting)
-    print(f"main path, {args.steps} steps: {cs.fmt_branches(branches, args.steps)}; resetting "
-          f"envs per step: mean {statistics.mean(shares):.4f}, median "
-          f"{statistics.median(shares):.4f}, max {shares[-1]:.4f} of B={cs.BATCH} "
-          f"({slots} slots)")
+    branches = tuple(a - b for a, b in zip(
+        (env.reset_steps, env.compact_reset_steps, env.full_reset_steps), before))
+    shares = sorted(n / BATCH for n in resetting)
+    print(f"main path, {args.steps} steps: {branches[0]} reset ({branches[1]} compacted, "
+          f"{branches[2]} full width); resetting envs per step: mean "
+          f"{statistics.mean(shares):.4f}, median {statistics.median(shares):.4f}, max "
+          f"{shares[-1]:.4f} of B={BATCH} ({slots} slots)")
 
-    act = cs.policy_actions(env, policy, obs, gen)
+    act = policy_actions(env, policy, obs, gen)
     step_syncs = {
-        "filtered step": len(cs.host_syncs(
+        "filtered step": len(host_syncs(
             lambda: cbf_filtered_step(env, cbf, state, act, generator=gen))),
-        "filter": cs.host_syncs(lambda: cbf.filter_actions(state, act, u_init=state.cbf_u_prev)),
-        "env step": cs.host_syncs(lambda: env.step(state, act, generator=gen)),
+        "filter": host_syncs(lambda: cbf.filter_actions(state, act, u_init=state.cbf_u_prev)),
+        "env step": host_syncs(lambda: env.step(state, act, generator=gen)),
     }
 
     g = torch.Generator(device="cuda").manual_seed(23)
-    env_any = torch.rand((cs.BATCH,), generator=g, device="cuda") < cs.RESET_SHARE
-    mask = env_any[:, None].expand(cs.BATCH, cs.N_AGENTS).contiguous()
+    env_any = torch.rand((BATCH,), generator=g, device="cuda") < RESET_SHARE
+    mask = env_any[:, None].expand(BATCH, N_AGENTS).contiguous()
     k = int(env_any.sum())
     draws = ResetDraws.sample(env.cfg, g, "cuda", compact_slots=slots)
     fns = {"compacted": lambda: apply_reset(env.cfg, env.tables, state, mask, draws,
                                             compact=(0, k)),
            "full width": lambda: apply_reset(env.cfg, env.tables, state, mask, draws)}
-    reset_syncs = {name: cs.host_syncs(fn) for name, fn in fns.items()}
+    reset_syncs = {name: host_syncs(fn) for name, fn in fns.items()}
     print(f"host syncs: {step_syncs}; in one reset {reset_syncs}")
 
     res = {name: dict(host_ms=[], busy_ms=[], launches=[]) for name in fns}
@@ -137,12 +134,12 @@ def main() -> int:
         res[name]["launches"].append(launches)
     for name, r in res.items():
         r["host_ms_median"] = statistics.median(r["host_ms"])
-        print(f"reset ({name}, {k} of {cs.BATCH} envs, N={cs.N_AGENTS}): host "
+        print(f"reset ({name}, {k} of {BATCH} envs, N={N_AGENTS}): host "
               f"{r['host_ms_median']:.4f} ms per call (median of {len(r['host_ms'])} windows, "
               f"{min(r['host_ms']):.4f} to {max(r['host_ms']):.4f}), device busy "
               f"{r['busy_ms']} ms, {r['launches']} launches per call; on {smi}")
     print(smi)
-    print(json.dumps(dict(device=smi, batch=cs.BATCH, n_agents=cs.N_AGENTS, steps=args.steps,
+    print(json.dumps(dict(device=smi, batch=BATCH, n_agents=N_AGENTS, steps=args.steps,
                           branches=branches, resetting_per_step=resetting,
                           step_syncs=step_syncs, reset_syncs=reset_syncs,
                           resetting_envs=k, reset=res)))

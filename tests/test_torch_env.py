@@ -8,7 +8,9 @@ atol 2e-5 (reassociated sums, trigonometric library differences of an ulp
 or two); observations to 1e-4 (normalised features built from those
 fields); integer fields and flags exactly."""
 
+import ast
 import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -113,6 +115,35 @@ def test_package_imports_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) > 20
+
+
+def _imported_roots(path: str) -> set:
+    """The top-level names of every module a file imports, in functions
+    too (relative imports stay inside the package and count as none)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_the_port_imports_neither_the_card_runner_nor_the_benchmark():
+    """The arrows point one way: no module of the port imports the root
+    script `chip_smoke.py` or `benchmark/`, and no script or port test
+    imports `chip_smoke.py` (a runner, not a library)."""
+    pkg = os.path.join(REPO, "sigmarl_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    users = sorted(glob.glob(os.path.join(REPO, "scripts", "*.py"))
+                   + glob.glob(os.path.join(REPO, "tests", "test_torch_*.py")))
+    assert len(files) > 20 and len(users) > 20
+    bad = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & names)
+           for names, group in (({"chip_smoke", "benchmark"}, files), ({"chip_smoke"}, users))
+           for f in group}
+    assert not {f: n for f, n in bad.items() if n}
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):

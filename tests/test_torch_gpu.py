@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 rollout-like sizes and on the evaluation path's inputs (one agent, active
 CLF rows, one to five circles, window selections), the kernels' launches
-in training iterations, the training entry point, and steps on the card
-against the CPU (the challenge buffer's record and replay included). Every test here needs a CUDA
+in training iterations, the training entry point, and steps, a PPO
+update and the host tools on the card against the CPU (the challenge
+buffer's record and replay included). Every test here needs a CUDA
 device (marker `gpu`) and skips without one. The file imports no JAX, so
 it also runs on a machine that has only PyTorch:
 
@@ -410,6 +411,75 @@ def test_filtered_step_launches_each_kernel_once(rollout):
     assert obs.shape == (B, N, env.obs_dim) and np.isfinite(info["cbf_max_violation"].cpu()).all()
 
 
+def test_main_path_step_at_b8_on_the_card_matches_the_cpu():
+    """The main path (cpm_entire, N=15, centralized filter at 3+5) at B=8
+    on the card against the CPU path (the kernels' plain versions), from
+    the same state with the same draws:
+
+    - the assembled constraint rows to atol 1e-4, relative 1e-5 (the two
+      devices round sines and square roots apart);
+    - the card's solution no worse than the CPU's: its objective on the
+      CPU's rows within a relative 1e-3 above the CPU's. Not symmetric: the
+      solver has non-optimal fixed points, which rounding can enter on one
+      device and miss on the other (this input: on the CPU one env stops
+      at F = 26.286 against an optimum of 12.259, see
+      `scripts/qp_conditioning_probe.py`);
+    - the env step from the same applied actions: rewards and positions to
+      atol 2e-5, observations to 1e-4, done flags equal."""
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.env.structs import state_to
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    Bs = 8
+    p = Parameters(
+        scenario_type="cpm_entire", n_agents=N, num_vmas_envs=Bs, dt=0.1, max_steps=1_000_000,
+        is_use_mtv_distance=False, is_obs_noise=False, is_using_cbf_testing=True,
+        is_using_centralized_cbf=True,
+    )
+    ccfg = CBFConfig(n_agents=N, n_circles=3, dt=0.1, newton_iters=5, newton_soft_iters=3)
+    env_c, env_g = make_env(p, device="cpu"), make_env(p, device="cuda")
+    cbf_c = CBFSafetyFilter(ccfg, env_c.cfg, env_c.tables, device="cpu")
+    cbf_g = CBFSafetyFilter(ccfg, env_g.cfg, env_g.tables, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    lim = env_c.action_limits
+    state, _ = env_c.reset(generator=gen)
+    for _ in range(3):
+        act = (2 * torch.rand((Bs, N, 2), generator=gen) - 1) * lim
+        state, *_ = cbf_filtered_step(env_c, cbf_c, state, act, generator=gen)
+    act = (2 * torch.rand((Bs, N, 2), generator=gen) - 1) * lim
+    draws = ResetDraws.sample(env_c.cfg, gen, "cpu")
+    draws_g = ResetDraws(None, draws.path_u.cuda(), draws.point_u.cuda(), draws.speed_u.cuda())
+    sg, act_g = state_to(state, torch.device("cuda")), act.cuda()
+
+    cons, u_nom, _, _ = cbf_c.assemble(state, act)
+    cons_g, _, _, _ = cbf_g.assemble(sg, act_g)
+    for f in ("A_s", "b_s", "h_s", "A_pi", "A_pj", "b_p", "h_p", "ws_s", "ws_p"):
+        torch.testing.assert_close(getattr(cons_g, f).cpu(), getattr(cons, f), atol=1e-4,
+                                   rtol=1e-5, msg=f)
+
+    lo, hi = (cbf_c.a_min, cbf_c.rate_min), (cbf_c.a_max, cbf_c.rate_max)
+    w_u = (ccfg.w_u_acc, ccfg.w_u_steer)
+
+    def F(u):
+        a = kernel_inputs(cons, u_nom, lo, hi, u, ccfg.newton_ws_cap)
+        return newton_solve_reference(a[0], a[1], a[3], a[3], *a[4:], w_u, lo, hi, 0)[1].double()
+
+    fc = cbf_c.filter_actions(state, act, u_init=state.cbf_u_prev)
+    fg = cbf_g.filter_actions(sg, act_g, u_init=sg.cbf_u_prev)
+    F_c, F_g = F(fc.u_star), F(fg.u_star.cpu())
+    worse = float(((F_g - F_c) / (1.0 + F_c.abs())).max())
+    assert worse < 1e-3, worse
+
+    sc, obs_c, rew_c, done_c, _ = env_c.step(state, fc.safe_actions, reset_draws=draws)
+    sg2, obs_g, rew_g, done_g, _ = env_g.step(sg, fc.safe_actions.cuda(), reset_draws=draws_g)
+    torch.testing.assert_close(rew_g.cpu(), rew_c, atol=2e-5, rtol=0)
+    torch.testing.assert_close(sg2.pos.cpu(), sc.pos, atol=2e-5, rtol=0)
+    torch.testing.assert_close(obs_g.cpu(), obs_c, atol=1e-4, rtol=0)
+    assert torch.equal(done_g.cpu(), done_c)
+    assert obs_g.shape == (Bs, N, env_g.obs_dim)
+
+
 @pytest.mark.parametrize("mode", ["grouped", "decentralized"])
 def test_solve_kernel_matches_plain_on_filter_modes(rollout, mode):
     """K1 on a real grouped input (groups of at most 4: 2 * 9 pair rows,
@@ -468,36 +538,44 @@ def test_training_iteration_launches_on_the_card(tmp_path, mode):
     assert bool(torch.isfinite(state.obs).all()) and state.opt_state.count == 4
 
 
-@pytest.mark.parametrize("config", ["learning_curve", "learned_priority"])
+@pytest.mark.parametrize("config", ["learning_curve", "learned_priority", "learning_curve_full"])
 def test_update_graph_replays_equal_the_eager_update(tmp_path, config):
     """The learning curve's configuration (cpm_mixed, N=4, B=128, 30
     epochs of minibatch 512, observation noise on, entropy_eps 4e-3) at
-    T=8, and the same with learned priority (four networks): two
-    iterations, each rolled out once and updated twice from the same
-    frames and draws, by the trainer's CUDA graph and by the same program
-    run eagerly (`update_graph=False`). Parameters, moments and loss
-    statistics equal bit for bit, and the replays run under
-    `torch.cuda.set_sync_debug_mode("error")`: no host sync."""
+    T=8 for two iterations, the same with learned priority (four
+    networks), and at its full T=128 (960 minibatch updates) for one
+    iteration: each iteration rolled out once and updated twice from the
+    same frames and draws, by the trainer's CUDA graph and by the same
+    program run eagerly (`update_graph=False`). Parameters, moments and
+    loss statistics equal bit for bit, the replays run under
+    `torch.cuda.set_sync_debug_mode("error")` (no host sync), and no
+    kernel of the filter is launched."""
     from sigmarl_tpu_torch import learning_curve
+    from sigmarl_tpu_torch.ops import launch_counts
     from sigmarl_tpu_torch.rl.mappo_cavs import MAPPOCAVs
     from sigmarl_tpu_torch.utils.card_checks import update_graph_vs_eager
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     extra = dict(is_using_prioritized_marl=True, prioritization_method="marl")
-    p = learning_curve.parameters(2, 0, "cuda", str(tmp_path) + "/", max_steps=8,
+    T, iters = (128, 1) if config == "learning_curve_full" else (8, 2)
+    p = learning_curve.parameters(2, 0, "cuda", str(tmp_path) + "/", max_steps=T,
                                   **(extra if config == "learned_priority" else {}))
     graph_tr, eager_tr = MAPPOCAVs(p), MAPPOCAVs(p, update_graph=False)
     assert graph_tr.update_graph and not eager_tr.update_graph
-    assert graph_tr.n_minibatches == 2 and graph_tr.updates_per_iter == 60
+    assert graph_tr.n_minibatches == T // 4 and graph_tr.updates_per_iter == 30 * T // 4
     state = graph_tr.initial_state()
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for i in range(2):
+    before = launch_counts()
+    for i in range(iters):
         r = update_graph_vs_eager(graph_tr, eager_tr, state, gen, sync_mode="error")
         assert r["equal"], (i, r["max_abs_diff"])
         assert all(np.isfinite(v) for v in r["stats"].values())
         state = r["state"]
-    assert state.opt_state.count == 120 and graph_tr.program.graph is not None
+    launched = launch_counts(since=before)
+    assert launched["qp_newton"] == 0 and launched["boundary_stencil"] == 0, launched
+    assert state.opt_state.count == iters * graph_tr.updates_per_iter
+    assert graph_tr.program.graph is not None
 
 
 def test_census_on_the_card_counts_the_cpus_rollout():
@@ -539,6 +617,51 @@ def test_main_training_on_the_card(tmp_path, capsys):
     assert "iter 1/1" in capsys.readouterr().out
 
 
+def test_ppo_minibatch_update_on_the_card_matches_the_cpu():
+    """One PPO minibatch update on the card against the CPU at a small
+    size (cpm_mixed, N=4, the 3x256 networks, 64 frames), from the same
+    weights, minibatch and entropy noise: the loss to a relative 1e-5, the
+    gradients to atol 1e-5 and relative 1e-4, and the updated parameters to
+    atol 1e-6 wherever both gradients exceed 1e-6 in magnitude (elsewhere
+    Adam's first step is +-lr by the gradient's sign, which may part)."""
+    from sigmarl_tpu_torch.rl.mappo_cavs import MAPPOCAVs
+    from sigmarl_tpu_torch.rl.networks import tanh_normal_sample
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw = dict(scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=4, dt=0.1, max_steps=16,
+              n_iters=2, num_epochs=1, minibatch_size=64, is_use_mtv_distance=False,
+              is_obs_noise=False)
+    trs = {d: MAPPOCAVs(Parameters(**kw, device=d)) for d in ("cpu", "cuda")}
+    g = torch.Generator().manual_seed(7)
+    D = trs["cpu"].env.obs_dim
+    mb = {"obs": torch.randn((64, 4, D), generator=g)}
+    with torch.no_grad():
+        loc, scale = trs["cpu"].policy_net(mb["obs"])
+        mb["action"], mb["log_prob"] = tanh_normal_sample(
+            loc, scale, trs["cpu"].low, trs["cpu"].high, generator=g)
+    mb["log_prob"] = mb["log_prob"] + 0.1 * torch.randn((64, 4), generator=g)
+    mb["adv"], mb["vt"] = torch.randn((64, 4), generator=g), torch.randn((64, 4), generator=g)
+    noise = torch.randn((64, 4, 2), generator=g)
+    res = {}
+    for d, tr in trs.items():
+        params = tr.parameter_list()
+        total, _ = tr.loss(tr.networks(), {k: v.to(d) for k, v in mb.items()}, noise.to(d))
+        grads = torch.autograd.grad(total, params)
+        before = [t.detach().clone() for t in params]
+        tr.optimizer.step(params, grads, tr.optimizer.init(params))
+        res[d] = (float(total.detach()), [x.cpu() for x in grads],
+                  [t.detach().cpu() for t in params], [t.cpu() for t in before])
+    (lc, gc, pc, bc), (lg, gg, pg, bg) = res["cpu"], res["cuda"]
+    assert all(torch.equal(a, b) for a, b in zip(bc, bg)), "the two trainers start apart"
+    assert abs(lg - lc) / abs(lc) < 1e-5, (lg, lc)
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    p_err = max(float(torch.where((a.abs() > 1e-6) & (b.abs() > 1e-6), (x - y).abs(), 0.0).max())
+                for a, b, x, y in zip(gg, gc, pg, pc))
+    assert p_err <= 1e-6, p_err
+
+
 def test_xpmarl_propagation_on_the_card_matches_the_cpu():
     """One XP-MARL propagation step (N=4, B=8, communication noise on) on
     the card against the CPU from the same weights and draws: actions,
@@ -563,29 +686,30 @@ def test_xpmarl_propagation_on_the_card_matches_the_cpu():
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
 
 
-def test_env_step_with_mtv_noise_and_history_on_the_card_matches_the_cpu():
+@pytest.mark.parametrize("N, scenario", [(4, "cpm_mixed"), (15, "cpm_entire")])
+def test_env_step_with_mtv_noise_and_history_on_the_card_matches_the_cpu(N, scenario):
     """One env step with the MTV distance, observation noise and a history
-    of 2 (cpm_mixed, N=4, B=8) from the same state, actions and draws:
-    rewards and positions to atol 2e-5, observations and history to 1e-4,
-    done flags equal."""
+    of 2 (cpm_mixed at N=4, cpm_entire at N=15; B=8) from the same state,
+    actions and draws: rewards and positions to atol 2e-5, observations
+    and history to 1e-4, done flags equal."""
     from sigmarl_tpu_torch.env.reset import ResetDraws
     from sigmarl_tpu_torch.env.structs import state_to
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
-    p = Parameters(scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=8, dt=0.1,
+    p = Parameters(scenario_type=scenario, n_agents=N, num_vmas_envs=8, dt=0.1,
                    max_steps=6, n_observed_steps=2)
     assert p.is_use_mtv_distance and p.is_obs_noise
     env_c, env_g = make_env(p, device="cpu"), make_env(p, device="cuda")
     g = torch.Generator().manual_seed(2)
     state, _ = env_c.reset(generator=g)
     for _ in range(4):
-        act = (2 * torch.rand((8, 4, 2), generator=g) - 1) * env_c.action_limits
+        act = (2 * torch.rand((8, N, 2), generator=g) - 1) * env_c.action_limits
         state, *_ = env_c.step(state, act, generator=g)
     draws = ResetDraws.sample(env_c.cfg, g, "cpu")
     draws_g = ResetDraws(*(None if x is None else x.cuda() for x in (
         draws.scenario_gumbel, draws.path_u, draws.point_u, draws.speed_u)))
-    u = torch.rand((8, 4, env_c.obs_dim), generator=g)
+    u = torch.rand((8, N, env_c.obs_dim), generator=g)
     sc, oc, rc, dc, _ = env_c.step(state, act, reset_draws=draws, obs_noise=u)
     sg, og, rg, dg, _ = env_g.step(state_to(state, torch.device("cuda")), act.cuda(),
                                    reset_draws=draws_g, obs_noise=u.cuda())
@@ -747,6 +871,38 @@ def test_compacted_reset_on_the_card_matches_the_cpu():
         pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
     checks = compact_reset_card_vs_cpu("cuda")
     assert all(c.ok for c in checks), [c for c in checks if not c.ok]
+
+
+def test_compacted_reset_is_the_full_width_reset_on_the_card():
+    """`apply_reset` on the main path's env and a live state (cpm_entire,
+    N=15, B=1024, after 8 filtered steps) with one seeded mask of about
+    23 % of the envs, whole envs as the main path resets them: the
+    compacted spawn gives the state that the full-width spawn gives from
+    draws carrying the compacted rows in the resetting envs' rows, every
+    field bit for bit."""
+    from sigmarl_tpu_torch.bench import filtered_step, main_path
+    from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, compact_slots
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    Bf = 1024
+    env, cbf, policy, gen, state, obs = main_path(Bf, N, "cuda")
+    for _ in range(8):
+        state, obs, *_ = filtered_step(env, cbf, policy, state, obs, gen)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    env_any = torch.rand((Bf,), generator=g, device="cuda") < 0.23
+    mask = env_any[:, None].expand(Bf, N).contiguous()
+    k, slots = int(env_any.sum()), compact_slots(Bf, False)
+    assert 0 < k <= slots
+    draws = ResetDraws.sample(env.cfg, g, "cuda", compact_slots=slots)
+    rows = env_any.nonzero()[:, 0]
+    draws.path_u[rows] = draws.path_u_c[:k]
+    draws.point_u[rows] = draws.point_u_c[:k]
+    compacted = apply_reset(env.cfg, env.tables, state, mask, draws, compact=(0, k))
+    full = apply_reset(env.cfg, env.tables, state, mask, draws)
+    differ = [f.name for f in dataclasses.fields(full)
+              if not torch.equal(getattr(compacted, f.name), getattr(full, f.name))]
+    assert not differ, differ
 
 
 def _spawn_case(case: str, seed: int = 0):
@@ -927,7 +1083,8 @@ def test_one_rank_nccl_iteration_matches_the_unsharded_one():
     once on the card: the checks of
     `utils/card_checks.py::sharded_vs_unsharded` (integer fields and flags
     equal, floats within 1e-3, the parameter rule, K1 and K2 once per
-    rollout step), as `chip_smoke.py` holds them at full width."""
+    rollout step); `chip_smoke.py` holds 2 gloo ranks sharing the card to
+    them at full width."""
     from sigmarl_tpu_torch.parallel.dryrun import spawn_ranks
     from sigmarl_tpu_torch.utils.card_checks import (
         sharded_iteration_rank,
@@ -954,25 +1111,36 @@ def test_warm_start_certificate_at_the_fixture():
     iterations, the cold 2+30 oracle, 10 stress steps) on the card: the
     stress rollout draws on the host, so the card's reset state is the
     CPU's bit for bit and the card's default generator stays untouched;
-    JAX's keys, 40 instances, and ok (max gap below 1e-3). Also every
-    instance whose warm solve ends above 1e-3 of the oracle (none when
-    ok) is the warm budget's, not the kernel's: K1 ends where its plain
-    version ends on the same rows, and more iterations from the same
+    JAX's keys, 40 instances, and ok (max gap below 1e-3); K1 launched 5
+    times a stress step (the cold and the warm solve, two evaluations, the
+    step's) and K2 4 times. The card's own reset from the same host draws
+    spawns alike: positions, headings, speeds and ids bit for bit. Also
+    every instance whose warm solve ends above 1e-3 of the oracle (none
+    when ok) is the warm budget's, not the kernel's: K1 ends where its
+    plain version ends on the same rows, and more iterations from the same
     start, or the float64 dense oracle, reach the oracle's objective."""
     import dataclasses
 
     from sigmarl_tpu_torch import check_warm_start
+    from sigmarl_tpu_torch.env.reset import ResetDraws
     from sigmarl_tpu_torch.utils.certificate_tail import explain, plain_agrees
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
     args = (4, 4, 6, 0, 10.0, 30)
-    card = check_warm_start.stress_setup(*args, device="cuda")[3]
+    env, _, _, card, _, _ = check_warm_start.stress_setup(*args, device="cuda")
     host = check_warm_start.stress_setup(*args, device="cpu")[3]
     for f in dataclasses.fields(card):
         assert torch.equal(getattr(card, f.name).cpu(), getattr(host, f.name)), f.name
+    own, _ = env.reset(draws=ResetDraws.sample(env.cfg, torch.Generator().manual_seed(0),
+                                               "cpu").to("cuda"))
+    for f in ("pos", "rot", "speed", "path_id", "point_id", "scenario_id"):
+        assert torch.equal(getattr(own, f).cpu(), getattr(host, f)), f
     rng = torch.cuda.get_rng_state()
+    before = launch_counts()
     line, _ = check_warm_start.certificate(device="cuda")
+    launches = launch_counts(since=before)
+    assert (launches["qp_newton"], launches["boundary_stencil"]) == (50, 40), launches
     assert torch.equal(rng, torch.cuda.get_rng_state())
     assert {"check", "backend", "max_objective_gap", "gap_quantiles", "n_instances",
             "max_u_dev", "ok"} <= set(line)
@@ -1201,3 +1369,57 @@ def test_every_filter_mode_is_captured(live_inputs, mode):
     assert counts.get("filter.graph.captures") == 1 and counts.get("filter.graph.replays") == 1
     for i, out in enumerate(outs):
         _equal_bit_for_bit(out, _filter_call(cbf._filter_eager, steps, i, True))
+
+
+def test_host_tools_on_the_card_match_the_cpu():
+    """The host-side modules on the card against the CPU: the dense QP
+    oracle on `to_dense` of an assembled set (cpm_entire, N=4, B=8; F to a
+    relative 1e-4), `pseudo_distance_to_polyline` on the example map's
+    boundary (atol 1e-5), `current_lanelet_id` of every agent (equal);
+    then an `InteractiveSession` (keys, 5 steps) and `debug_demo` (5 steps)
+    on the card, finite."""
+    from sigmarl_tpu_torch.core.geometry import current_lanelet_id
+    from sigmarl_tpu_torch.env import debug_demo
+    from sigmarl_tpu_torch.env.interactive import InteractiveSession
+    from sigmarl_tpu_torch.env.structs import state_to
+    from sigmarl_tpu_torch.maps.manager import load_map
+    from sigmarl_tpu_torch.safety.pseudo_distance import pseudo_distance_to_polyline
+    from sigmarl_tpu_torch.safety.qp import solve_boxed_penalty_qp
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = Parameters(scenario_type="cpm_entire", n_agents=4, num_vmas_envs=8, dt=0.1,
+                   is_use_mtv_distance=False, is_obs_noise=False)
+    out = {}
+    for d in ("cpu", "cuda"):
+        env = make_env(p, device=d)
+        cbf = CBFSafetyFilter(CBFConfig(n_agents=4, dt=0.1), env.cfg, env.tables, device=d)
+        state, _ = env.reset(generator=torch.Generator().manual_seed(3)) if d == "cpu" else (
+            state_to(out["cpu"]["state"], d), None)
+        act = torch.full((8, 4, 2), 0.4, device=d)
+        cons, u_nom, _, _ = cbf.assemble(state, act)
+        dense = cbf.to_dense(cons)
+        w_u, lo, hi = (torch.tensor(x, device=d).repeat(4) for x in (
+            (cbf.cfg.w_u_acc, cbf.cfg.w_u_steer), (cbf.a_min, cbf.rate_min),
+            (cbf.a_max, cbf.rate_max)))
+        _, F = solve_boxed_penalty_qp(dense, u_nom.reshape(8, 8), w_u, lo, hi, n_iters=12)
+        t = env.tables
+        pid = state.path_id.long()
+        ids = current_lanelet_id(state.pos, t.ref_lanelet_segment_points[pid],
+                                 t.n_ref_lanelet_ids[pid], t.ref_lanelet_ids[pid])
+        path = load_map("pseudo_distance_example").reference_paths[0]
+        bnd = torch.as_tensor(path.left_boundary_shared, device=d)
+        pts = bnd[None] + torch.linspace(-0.2, 0.2, 9, device=d)[:, None, None]
+        pd = pseudo_distance_to_polyline(pts.reshape(-1, 2), bnd, torch.as_tensor(
+            path.left_boundary_shared_pseudo_vector, device=d))
+        out[d] = dict(state=state_to(state, "cpu"), F=F.cpu(), ids=ids.cpu(), pd=pd.cpu())
+    gap = float(((out["cuda"]["F"] - out["cpu"]["F"]).abs() / (1 + out["cpu"]["F"].abs())).max())
+    assert gap <= 1e-4, gap
+    torch.testing.assert_close(out["cuda"]["pd"], out["cpu"]["pd"], atol=1e-5, rtol=0)
+    assert torch.equal(out["cuda"]["ids"], out["cpu"]["ids"])
+    sess = InteractiveSession(device="cuda")
+    for k in ("up", "up", "left", "r", "up"):
+        sess.key(k)
+    rews = [sess.step()[0] for _ in range(5)]
+    traj = debug_demo.main(["--steps", "5", "--device", "cuda"])
+    assert sess.t == 5 and all(np.isfinite(r).all() for r in rews) and np.isfinite(traj).all()

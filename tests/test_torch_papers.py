@@ -7,8 +7,9 @@ observation switches, which no other test sets.
   to JAX's (all but `device`). The trainers, the env and the rollout are
   replaced inside the test by stand-ins that record the parameters, in
   both packages, so that nothing trains here; the JAX package's files stay
-  as they are. The drivers' own runs are checked by `chip_smoke.py` on the
-  card and by the quick CLI runs on the CPU.
+  as they are. The ITSC'25, ECC'25 and LCSS'25 drivers' own runs are
+  checked on the card by `chip_smoke.py`, and every driver's by the quick
+  CLI runs on the CPU.
 - The ITSC'24 observation switches, each off alone and M1 with M4:
   `observe_core` to atol 1e-5 (float32 features of the same state).
   (The CBF-filtered trainer iteration is held in

@@ -116,8 +116,8 @@ def test_compacted_apply_reset_matches_jax(setup):
 def test_compacted_spawn_is_the_full_width_spawn_on_the_same_rows(setup):
     """The compacted spawn is a gather and a scatter around the per-env
     spawn: full-width draws that carry the compacted rows in the
-    resetting envs' rows give the same state, bit for bit (what
-    `chip_smoke.py` checks on the card before it times both)."""
+    resetting envs' rows give the same state, bit for bit (on the card:
+    `test_torch_gpu.py::test_compacted_reset_is_the_full_width_reset_on_the_card`)."""
     tenv = setup["tenv"]
     state = to_torch_state(setup["state"])
     g = torch.Generator().manual_seed(10)

@@ -2,8 +2,9 @@
 (`cpm_entire_n15_cbf_train.train_filtered`, `benchmark/configs/
 cpm_entire_n15_cbf_train.json`) on the CPU: the cell at a tiny size is
 correct against the benchmark's plain reference, the trainer's filter
-solves at the configuration's budget, `chip_smoke.FILTERED_TRAINING` is the
-same configuration, and the rollout's acting and transition spans open
+solves at the configuration's budget, `utils/card_checks.py::
+FILTERED_TRAINING` (which `chip_smoke.py` runs on the card) is the same
+configuration, and the rollout's acting and transition spans open
 under `train.rollout` with the filter inside the transition."""
 
 import json
@@ -14,12 +15,12 @@ import sys
 import pytest
 import torch
 
-import chip_smoke
 from benchmark.harness.filtered_training import filter_budget
 from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.config import Parameters
 from sigmarl_tpu_torch.rl.mappo_cavs import MAPPOCAVs
 from sigmarl_tpu_torch.safety.cbf_qp import CBFSafetyFilter
+from sigmarl_tpu_torch.utils.card_checks import FILTERED_TRAINING
 
 torch.set_num_threads(1)
 
@@ -76,7 +77,7 @@ def test_the_trainers_filter_solves_at_the_configurations_budget(tmp_path):
 
 def test_chip_smokes_filtered_training_is_the_configuration():
     params = config_file()["parameters"]
-    smoke = chip_smoke.FILTERED_TRAINING
+    smoke = FILTERED_TRAINING
     shared = set(smoke) & set(params)
     assert shared >= {"scenario_type", "n_agents", "max_steps", "num_epochs", "minibatch_size",
                       "rew_method", "is_using_cbf_training", "is_solve_qp",
