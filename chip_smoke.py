@@ -26,10 +26,13 @@ result line:
 4. 16 timed filtered steps: K1 and K2 once per step, K3 (the spawn) once
    per step that ran the reset, at least one compacted reset step (at
    most 3B/8 = 384 envs reset: only those are spawned), every step a
-   replay of the filter's graph (captured in the warm-up), one host sync
-   per filtered step (the env step's read of the resetting envs; PyTorch's
-   sync debug mode counts the waits), finite obs, rewards and u*;
-   env-steps/s beside the card's name and power limit;
+   replay of the filter's graph and of the env step's six graphs (all
+   captured in the warm-up), one host sync per filtered step (the env
+   step's read of the resetting envs; PyTorch's sync debug mode counts the
+   waits), finite obs, rewards and u*; env-steps/s beside the card's name
+   and power limit; then the host's launches (kernels, copies, sets,
+   graph launches) of the env step in a step with a reset (B=1024) and in
+   one without (B=1, the latency path);
 5. K3 against the plain spawn on the main path's env and state (about
    16 % of the envs resetting, N=15, T=12), compacted and at full width,
    every output bit for bit; K3 timed beside an empty kernel's launch (its
@@ -327,7 +330,7 @@ def main_path_phase(dev, smi) -> dict:
     from sigmarl_tpu_torch.bench import filtered_step
     from sigmarl_tpu_torch.device import host_syncs
     from sigmarl_tpu_torch.utils.card_checks import (
-        capture_kernel_inputs, reset_counts, rollout, warm_main_path,
+        capture_kernel_inputs, env_graph_counts, reset_counts, rollout, warm_main_path,
     )
 
     t0 = time.perf_counter()
@@ -350,7 +353,9 @@ def main_path_phase(dev, smi) -> dict:
     resets = tuple(a - b for a, b in zip(reset_counts(env), warm_resets))
     graphs = {k: trace.snapshot()["counts"].get(f"filter.graph.{k}", 0)
               - graphs_before.get(f"filter.graph.{k}", 0) for k in ("captures", "replays")}
-    print(f"main path: {TIMED_STEPS} steps, launches {launches}, filter graph {graphs}")
+    env_graphs = env_graph_counts(graphs_before)
+    print(f"main path: {TIMED_STEPS} steps, launches {launches}, filter graph {graphs}, "
+          f"env-step graphs {env_graphs}")
     print(f"main path reset steps: {fmt_branches(resets, TIMED_STEPS)} of the timed steps; "
           f"warm-up {fmt_branches(warm_resets, WARMUP_STEPS)}")
     check(resets[1] > 0, f"no compacted reset step on the main path ({resets})")
@@ -358,6 +363,8 @@ def main_path_phase(dev, smi) -> dict:
                               "spawn_place": resets[0]}, "main path")
     check(graphs == {"captures": 0, "replays": TIMED_STEPS},
           f"the filter's graph: {graphs} in {TIMED_STEPS} steps; want every step a replay")
+    check(env_graphs == {"captures": 0, "replays": 6 * TIMED_STEPS},
+          f"the env step's graphs: {env_graphs} in {TIMED_STEPS} steps; want six replays a step")
     syncs = host_syncs(lambda: filtered_step(env, cbf, policy, state, obs, gen))
     print(f"main path: {len(syncs)} host sync in one filtered step, at {syncs} (the env "
           "step's read of the number of resetting envs; the filter replays its graph)")
@@ -366,8 +373,29 @@ def main_path_phase(dev, smi) -> dict:
     check(obs.shape == (BATCH, N_AGENTS, env.obs_dim), f"obs shape {tuple(obs.shape)}")
     print(f"env-steps/s: {TIMED_STEPS * BATCH / elapsed:.1f} at B={BATCH}, N={N_AGENTS} "
           f"({elapsed / TIMED_STEPS * 1e3:.2f} ms/step) on {smi}")
+    env_launches_phase(env, cbf, policy, gen, state, obs)
     return dict(env=env, policy=policy, gen=gen, state=state, launches=launches,
                 inputs=(qp_args, qp_static, pd_args), errs=errs)
+
+
+def env_launches_phase(env, cbf, policy, gen, state, obs) -> None:
+    """The host's launches of the env step (`utils/card_checks.py::
+    host_launches`): in 4 main-path steps at B=1024, each with a reset,
+    and in steps of the latency path (B=1) until one without a reset."""
+    from sigmarl_tpu_torch.utils.card_checks import env_step_launches, warm_main_path
+
+    def fmt(calls):
+        return f"{sum(calls.values())} ({', '.join(f'{k} {n}' for k, n in sorted(calls.items()))})"
+
+    rows, *_ = env_step_launches(env, cbf, policy, gen, state, obs, 4)
+    check(all(reset for reset, _ in rows), "a main-path step at B=1024 without a reset")
+    print("env step host launches, B=1024, steps with a reset: "
+          + "; ".join(fmt(calls) for _, calls in rows))
+    env1, cbf1, policy1, gen1, state1, obs1, _ = warm_main_path(1, N_AGENTS, 8)
+    rows, *_ = env_step_launches(env1, cbf1, policy1, gen1, state1, obs1, 16)
+    calm = [calls for reset, calls in rows if not reset]
+    check(calm, "16 steps at B=1 without a step free of resets")
+    print(f"env step host launches, B=1, a step without a reset: {fmt(calm[0])}")
 
 
 def spawn_kernel_phase(env, state, smi) -> dict:

@@ -15,6 +15,9 @@ struct-of-tensors state `[B, N, ...]`, with auto-reset folded in:
    1024 envs run and at most 3/8 of them reset
 6. observation of the post-reset state
 
+On the card, 1 to 5 (up to the host's read of the number of resetting
+envs) and 6 replay CUDA graphs (`env/step_graphs.py`); the reset is eager.
+
 `reset_predefined` and `reset_from_poses` start every env from given
 poses instead of random spawns.
 """
@@ -37,6 +40,7 @@ from sigmarl_tpu_torch.env.map_tables import MapTables, build_map_tables
 from sigmarl_tpu_torch.env.observations import observe_with_history
 from sigmarl_tpu_torch.env.reset import ResetDraws, apply_reset, compact_slots, initial_state
 from sigmarl_tpu_torch.env.rewards import compute_rewards
+from sigmarl_tpu_torch.env.step_graphs import step_graphed
 from sigmarl_tpu_torch.env.structs import EnvConfig, WorldState, replace_state, zero_state
 from sigmarl_tpu_torch.env.updates import (
     latest_state_record,
@@ -71,7 +75,10 @@ class RoadTrafficEnv:
         self.reset_steps = self.compact_reset_steps = self.full_reset_steps = 0
         # With the challenge buffer on: states recorded and full-env resets
         # that replayed a record, accumulated on the device (no host sync).
+        # The card's step graphs add into this tensor: zero it in place,
+        # never rebind it.
         self.challenge_counts = torch.zeros(2, dtype=torch.int64, device=device)
+        self._graphs = {}  # the card's step graphs, by input key (`env/step_graphs.py`)
 
     @property
     def global_batch(self) -> int:
@@ -130,95 +137,147 @@ class RoadTrafficEnv:
         `obs_noise` or else from `generator`. With the challenge buffer on,
         the record's uniform is `reset_draws.record_u` or else drawn from
         `generator` every step. Returns (state', obs [B,N,obs_dim], reward
-        [B,N], done [B], info)."""
-        cfg, tables = self.cfg, self.tables
-        prev_pos = latest_state_record(state)[..., 0:2]
-        prev_short_term = state.short_term
+        [B,N], done [B], info).
 
+        CPU tensors, a sharded batch (its phases hold collectives) and
+        `debug_numerics` (which reads the host) run the phases op by op.
+        Otherwise the phases before the read of the resetting envs, and the
+        observation after the reset, replay CUDA graphs captured at the
+        first call of each input key (`env/step_graphs.py`); the read and
+        the reset stay eager. Either way the returned tensors are the
+        call's own, with the same numbers."""
+        if not state.pos.is_cuda or self.shard is not None or self.cfg.debug_numerics:
+            return self._step_eager(state, actions, generator, reset_draws, obs_noise)
+        return step_graphed(self, state, actions, generator, reset_draws, obs_noise)
+
+    def _step_eager(self, state, actions, generator, reset_draws, obs_noise):
+        """The step's phases op by op (`step`'s arguments and result)."""
         with trace.span("env_step.dynamics"):
-            pos, rot, speed, steering, sideslip, vel = command_step(
-                self.bicycle, state.pos, state.rot, state.speed, state.steering, actions, cfg.dt
-            )
-            state = replace_state(
-                state,
-                pos=pos, rot=rot, speed=speed, steering=steering, sideslip=sideslip, vel=vel,
-                step=state.step + 1,
-                nominal_action=actions if not cfg.is_using_cbf else state.nominal_action,
-                applied_action=actions,
-            )
+            state, prev_pos, prev_short_term = self._dynamics(state, actions)
         with trace.span("env_step.geometry"):
-            state = update_geometry(cfg, tables, state)
+            state = update_geometry(self.cfg, self.tables, state)
         with trace.span("env_step.rewards"):
-            reward, rew_info = compute_rewards(
-                cfg, state, prev_pos, prev_short_term, self.weighting_ref
-            )
-            if cfg.debug_numerics:
+            reward, rew_info = compute_rewards(self.cfg, state, prev_pos, prev_short_term,
+                                               self.weighting_ref)
+            if self.cfg.debug_numerics:
                 assert_finite(reward, "reward")
-        with trace.span("env_step.paths"):  # record + refresh windows
-            state = push_state_buffer(state)
-            state = update_short_term_paths(cfg, tables, state)
+        with trace.span("env_step.paths"):
+            state = self._paths(state)
         with trace.span("env_step.done"):
-            done, reset_mask = self._done_and_reset_mask(state)
-            info = dict(rew_info)
-            info.update(
-                pos=state.pos,
-                rot=state.rot,
-                vel=state.vel,
-                distance_ref=state.d_ref,
-                distance_left_b=state.d_left.min(-1).values,
-                distance_right_b=state.d_right.min(-1).values,
-                is_collision_with_agents=state.coll_agents.any(-1),
-                is_collision_with_lanelets=state.coll_lanelets,
-                is_reach_goal=state.coll_exit,
-                path_id=state.path_id,
-                nominal_action=state.nominal_action,
-                applied_action=state.applied_action,
-                terminal_step=state.step,
-            )
-            if cfg.is_challenging_initial_state_buffer:
-                record_u = None if reset_draws is None else reset_draws.record_u
-                if record_u is None:
-                    record_u = uniform((), generator, self.device)
-                state, n_recorded = record_challenging_states(cfg, state, record_u, self.shard)
+            record_u = self._record_u(reset_draws, generator)
+            state, done, reset_mask, info, n_reset, n_recorded = self._done(
+                state, rew_info, record_u)
+            if n_recorded is not None:
                 self.challenge_counts[0] += n_recorded
-            # The host reads how many envs reset (one device sync per step)
-            # and runs the reset only if any does: compacted where they fit
-            # the slots, else at full width. Sharded, the count is over
-            # every rank's envs (the reset also pushes every env's state
-            # buffer once more), and this rank's envs take the compacted
-            # draws' rows after the lower ranks' resetting envs.
-            n_reset = reset_mask.any(-1).sum().reshape(1)
-            if self.shard is None:
-                counts = [int(n_reset)]
-            else:
-                counts = self.shard.all_gather(n_reset).tolist()
-            trace.count_sync(n_reset.device)
-            n_total = sum(counts)
-        if n_total > 0:
+            counts = self._read_resets(n_reset)
+        if sum(counts) > 0:
             with trace.span("env_step.reset"):
-                self.reset_steps += 1
-                slots = compact_slots(self.global_batch, cfg.is_challenging_initial_state_buffer)
-                compact = None
-                if n_total <= slots:
-                    rank = 0 if self.shard is None else self.shard.rank
-                    compact = (sum(counts[:rank]), counts[rank])
-                    self.compact_reset_steps += 1
-                else:
-                    self.full_reset_steps += 1
-                if reset_draws is None:
-                    reset_draws = ResetDraws.sample(
-                        cfg, generator, self.device, state.cb_valid,
-                        compact_slots=slots if compact else 0, full=compact is None)
-                state = apply_reset(cfg, tables, state, reset_mask, reset_draws,
-                                    replay_count=self.challenge_counts[1:], compact=compact)
+                state = self._reset(state, reset_mask, counts, reset_draws, generator)
         # The observation of the (possibly reset) state; the history slots
         # of the agents just reset are refilled with the new episode's
         # features.
         with trace.span("env_step.observe"):
             obs, state = observe_with_history(
-                cfg, tables, state, reset_mask=reset_mask, noise=obs_noise, generator=generator
-            )
+                self.cfg, self.tables, state, reset_mask=reset_mask, noise=obs_noise,
+                generator=generator)
         return state, obs, reward, done, info
+
+    # The phases before the read of the resetting envs. The card's graphs
+    # capture them (and `observe_with_history`): they read no host value,
+    # make no tensor from one (constants come from `device.constant`) and
+    # change nothing but what they return.
+
+    def _dynamics(self, state: WorldState, actions: Tensor):
+        """The bicycle step from the actions. Returns (state, the previous
+        position and short-term window, which the rewards read)."""
+        cfg = self.cfg
+        prev_pos = latest_state_record(state)[..., 0:2]
+        pos, rot, speed, steering, sideslip, vel = command_step(
+            self.bicycle, state.pos, state.rot, state.speed, state.steering, actions, cfg.dt
+        )
+        prev_short_term = state.short_term
+        state = replace_state(
+            state,
+            pos=pos, rot=rot, speed=speed, steering=steering, sideslip=sideslip, vel=vel,
+            step=state.step + 1,
+            nominal_action=actions if not cfg.is_using_cbf else state.nominal_action,
+            applied_action=actions,
+        )
+        return state, prev_pos, prev_short_term
+
+    def _paths(self, state: WorldState) -> WorldState:
+        """State-buffer push, then the short-term windows' refresh."""
+        return update_short_term_paths(self.cfg, self.tables, push_state_buffer(state))
+
+    def _done(self, state: WorldState, rew_info: Dict[str, Tensor], record_u: Tensor | None):
+        """Done flags and the reset mask, the step's info, the challenge
+        buffer's record. Returns (state, done [B], reset_mask [B, N], info,
+        the number of resetting envs [1], the number of envs recorded []
+        or None without the buffer); the caller adds the last to
+        `challenge_counts`."""
+        done, reset_mask = self._done_and_reset_mask(state)
+        info = dict(rew_info)
+        info.update(
+            pos=state.pos,
+            rot=state.rot,
+            vel=state.vel,
+            distance_ref=state.d_ref,
+            distance_left_b=state.d_left.min(-1).values,
+            distance_right_b=state.d_right.min(-1).values,
+            is_collision_with_agents=state.coll_agents.any(-1),
+            is_collision_with_lanelets=state.coll_lanelets,
+            is_reach_goal=state.coll_exit,
+            path_id=state.path_id,
+            nominal_action=state.nominal_action,
+            applied_action=state.applied_action,
+            terminal_step=state.step,
+        )
+        n_recorded = None
+        if self.cfg.is_challenging_initial_state_buffer:
+            state, n_recorded = record_challenging_states(self.cfg, state, record_u, self.shard)
+        return state, done, reset_mask, info, reset_mask.any(-1).sum().reshape(1), n_recorded
+
+    def _record_u(self, reset_draws: ResetDraws | None, generator) -> Tensor | None:
+        """The challenge buffer's uniform of this step (None with the
+        buffer off): `reset_draws.record_u`, else drawn from `generator`."""
+        if not self.cfg.is_challenging_initial_state_buffer:
+            return None
+        record_u = None if reset_draws is None else reset_draws.record_u
+        return uniform((), generator, self.device) if record_u is None else record_u
+
+    def _read_resets(self, n_reset: Tensor) -> list:
+        """The host reads how many envs reset (one device sync per step).
+        Sharded, every rank's count, in rank order."""
+        if self.shard is None:
+            counts = [int(n_reset)]
+        else:
+            counts = self.shard.all_gather(n_reset).tolist()
+        trace.count_sync(n_reset.device)
+        return counts
+
+    def _reset(self, state, reset_mask, counts: list, reset_draws, generator) -> WorldState:
+        """The masked reset of a step in which `sum(counts)` envs reset:
+        compacted where they fit the slots, else at full width. Sharded,
+        the count is over every rank's envs (the reset also pushes every
+        env's state buffer once more), and this rank's envs take the
+        compacted draws' rows after the lower ranks' resetting envs."""
+        cfg = self.cfg
+        n_total = sum(counts)
+        self.reset_steps += 1
+        slots = compact_slots(self.global_batch, cfg.is_challenging_initial_state_buffer)
+        compact = None
+        if n_total <= slots:
+            rank = 0 if self.shard is None else self.shard.rank
+            compact = (sum(counts[:rank]), counts[rank])
+            self.compact_reset_steps += 1
+        else:
+            self.full_reset_steps += 1
+        if reset_draws is None:
+            reset_draws = ResetDraws.sample(
+                cfg, generator, self.device, state.cb_valid,
+                compact_slots=slots if compact else 0, full=compact is None)
+        return apply_reset(cfg, self.tables, state, reset_mask, reset_draws,
+                           replay_count=self.challenge_counts[1:], compact=compact)
 
     def reset_predefined(
         self,

@@ -6,9 +6,10 @@ near-zero CLF rows, one testing-mode, CLF-filtered, fp16-parity step on
 the card against the same step on the CPU, the challenge buffer's record
 and replay steps on the card against the CPU, a step whose reset spawn is
 compacted on the card against the CPU, the trainer's update as a graph
-replay against the same update run eagerly, and a sharded training
-iteration against the unsharded one. The configurations import on any
-device; the checks and timers need a CUDA device."""
+replay against the same update run eagerly, a sharded training
+iteration against the unsharded one, and the host's launches of a call.
+The configurations import on any device; the checks and timers need a
+CUDA device."""
 
 from __future__ import annotations
 
@@ -115,6 +116,35 @@ def cuda_ms_windows(fn, reps: int, windows: int = 7, queued: bool = False) -> di
     return dict(ms=times[len(times) // 2], ms_min=times[0], ms_max=times[-1])
 
 
+# The host's calls that put work on the card's queue: kernel launches,
+# copies, sets and graph launches.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch")
+
+
+def host_launches(fn) -> tuple:
+    """(fn's result, the calls of `LAUNCH_CALLS` the host made while it
+    ran, by name), from the profiler's record of the CUDA API's calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS}
+    return out, calls
+
+
+def env_graph_counts(before: dict | None = None) -> dict:
+    """The env step's graph counters (`env/step_graphs.py`): captures and
+    replays, since the counts `before` (a `trace.snapshot()["counts"]`)."""
+    from sigmarl_tpu_torch import trace
+
+    now, before = trace.snapshot()["counts"], before or {}
+    return {k: now.get(f"env_step.graph.{k}", 0) - before.get(f"env_step.graph.{k}", 0)
+            for k in ("captures", "replays")}
+
+
 def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
     """The largest |a - b| / (1 + |b|), in float64."""
     a, b = a.double(), b.double()
@@ -133,6 +163,26 @@ def rollout(env, cbf, policy, gen, state, obs, steps: int):
         finite &= torch.isfinite(obs).all() & torch.isfinite(rew).all()
         finite &= torch.isfinite(state.cbf_u_prev).all()
     return state, obs, bool(finite)
+
+
+def env_step_launches(env, cbf, policy, gen, state, obs, steps: int):
+    """`steps` steps of the main path's loop with each env step's host
+    launches counted (`host_launches`): [(whether its reset ran, {call:
+    n})], the final state and obs."""
+    inner, out = env.step, []
+
+    def counted(*args, **kw):
+        before = env.reset_steps
+        res, calls = host_launches(lambda: inner(*args, **kw))
+        out.append((env.reset_steps > before, calls))
+        return res
+
+    env.step = counted
+    try:
+        state, obs, _ = rollout(env, cbf, policy, gen, state, obs, steps)
+    finally:
+        del env.step
+    return out, state, obs
 
 
 def warm_main_path(batch: int = 1024, n_agents: int = 15, steps: int = 8):
@@ -594,7 +644,7 @@ def unsharded_iteration(kw: dict, seed: int, dev: str = "cuda") -> dict:
                metrics={k: float(v) for k, v in m.items()}, params=_flat_parameters(state).cpu(),
                seconds=[sec], launches=[launches], lr=tr.parameters.lr,
                updates=tr.updates_per_iter, counts=tr.challenge_counts().cpu(),
-               resets=[reset_counts(tr.env)])
+               resets=[reset_counts(tr.env)], env_graphs=len(tr.env._graphs))
     _, _, sec, launches = _timed_iteration(tr, state)
     out["seconds"].append(sec)
     out["launches"].append(launches)
@@ -619,7 +669,7 @@ def sharded_iteration_rank(shard, device, kw: dict, start, draws) -> dict:
                obs=shard.all_gather(state.obs).cpu(),
                metrics={k: float(v) for k, v in m.items()}, params=_flat_parameters(state).cpu(),
                seconds=[sec], launches=[launches], counts=tr.challenge_counts().cpu(),
-               resets=[reset_counts(tr.env)])
+               resets=[reset_counts(tr.env)], env_graphs=len(tr.env._graphs))
     _, _, sec, launches = _timed_iteration(tr, state)
     out["seconds"].append(sec)
     out["launches"].append(launches)
@@ -657,7 +707,9 @@ def sharded_vs_unsharded(ref: dict, ranks: List[dict], what: str) -> List[Check]
     - launches: K1 and K2 once per rollout step on every rank, K3 once per
       reset step (every rank spawns when any env resets);
     - the reset-step counts (reset, compacted, full width) of every rank
-      equal the unsharded env's: the branch is decided over all envs."""
+      equal the unsharded env's: the branch is decided over all envs;
+    - the env step: graphs captured unsharded on the card, none on a rank
+      (a sharded step holds collectives, so it runs op by op)."""
     checks = []
     r0 = ranks[0]
     worst, exact = 0.0, True
@@ -703,6 +755,11 @@ def sharded_vs_unsharded(ref: dict, ranks: List[dict], what: str) -> List[Check]
         checks.append(Check(f"{what}: rank {rank} reset-step counts {r['resets']} differ from "
                             f"{ref['resets']}", float(r["resets"] != ref["resets"]), 0.0,
                             r["resets"] == ref["resets"]))
+    for rank, r in enumerate(ranks):
+        checks.append(Check(f"{what}: rank {rank} env-step graph keys", r["env_graphs"], 0,
+                            r["env_graphs"] == 0))
+    checks.append(Check(f"{what}: unsharded env-step graph keys", ref["env_graphs"], 1,
+                        ref["env_graphs"] >= 1))
     T = len(ref["draws"].reset_draws)
     for rank, r in enumerate(ranks):
         for it, launches in enumerate(r["launches"]):

@@ -1193,9 +1193,10 @@ def test_the_program_counts_each_host_sync_in_its_layer(batch):
     """One main-path filtered step (a decision at B=1, a rollout step at
     B=1024) under `trace.enable()`: the `syncs` the program counts per span
     are the waits sync debug mode reports, each in the layer whose file the
-    warning names: one, the env step's read of the resetting envs; the
-    filter, a replay of its graph, has none, and each kernel's launch falls
-    in its span `filter.replay`."""
+    warning names: one, the env step's read of the resetting envs, in its
+    span `env_step.done`; the filter, a replay of its graph, has none, and
+    each kernel's launch falls in its span `filter.replay`; the env step's
+    six graphs replay, each in its phase's span."""
     from collections import Counter
 
     from sigmarl_tpu_torch import trace
@@ -1231,6 +1232,10 @@ def test_the_program_counts_each_host_sync_in_its_layer(batch):
     assert launches("filter.replay", "k2.launches") == 1
     assert launches("filter", "k1.launches") == launches("filter", "k2.launches") == 1
     assert spans["filter.replay"]["counts"]["filter.graph.replays"] == 1
+    assert spans["env_step.done"]["counts"]["syncs"] == 1
+    for phase in ("dynamics", "geometry", "rewards", "paths", "done", "observe"):
+        assert spans[f"env_step.{phase}"]["counts"]["env_step.graph.replays"] == 1, phase
+    assert sum(s["counts"].get("env_step.graph.captures", 0) for s in spans.values()) == 0
 
 
 def test_a_span_under_graph_capture_records_nothing():
@@ -1423,3 +1428,126 @@ def test_host_tools_on_the_card_match_the_cpu():
     rews = [sess.step()[0] for _ in range(5)]
     traj = debug_demo.main(["--steps", "5", "--device", "cuda"])
     assert sess.t == 5 and all(np.isfinite(r).all() for r in rews) and np.isfinite(traj).all()
+
+
+# The env step's graphs (`env/step_graphs.py`): the main path at B=1024
+# (from the all-zero state: a full-width reset, then compacted ones) and at
+# B=1 (from `env.reset`: steps without a reset), the train cell's cpm_mixed
+# N=4 B=128 with observation noise (given on even steps, drawn on odd ones,
+# as the reset's draws), testing mode and the challenge buffer (given
+# noise on even steps, which the step ignores with the noise off, as the
+# trainer passes it).
+ENV_GRAPH_CASES = {
+    "entire_b1024": dict(scenario_type="cpm_entire", n_agents=15, num_vmas_envs=1024,
+                         is_obs_noise=False),
+    "entire_b1": dict(scenario_type="cpm_entire", n_agents=15, num_vmas_envs=1,
+                      is_obs_noise=False),
+    "mixed_noise": dict(scenario_type="cpm_mixed", n_agents=4, num_vmas_envs=128, max_steps=128,
+                        is_obs_noise=True),
+    "testing": dict(scenario_type="cpm_entire", n_agents=15, num_vmas_envs=64,
+                    is_obs_noise=False, is_testing_mode=True),
+    "challenge": dict(scenario_type="cpm_entire", n_agents=15, num_vmas_envs=64,
+                      is_obs_noise=False, is_challenging_initial_state_buffer=True),
+}
+ENV_GRAPH_STEPS = 32
+
+
+def _env_outputs(out) -> dict:
+    """A step's returned tensors by name."""
+    state, obs, reward, done, info = out
+    named = {f"state.{f.name}": getattr(state, f.name) for f in dataclasses.fields(state)}
+    named.update(obs=obs, reward=reward, done=done, **{f"info.{k}": v for k, v in info.items()})
+    return named
+
+
+@pytest.mark.parametrize("case", list(ENV_GRAPH_CASES))
+def test_the_env_steps_graphs_replay_its_eager_body(case):
+    """32 steps of the env step on the card (its graphs) against its eager
+    body on the same inputs, with twin generators for the draws: every
+    returned tensor (state, obs, reward, done, info) bit for bit, checked
+    after the last step, so no later replay overwrote an earlier step's
+    output, and no two steps' outputs share memory; the challenge buffer's
+    counts alike; one capture, then six graph replays a step; the main
+    path meets steps with no reset, a compacted and a full-width reset;
+    then a step under sync debug mode "error" but for the read of the
+    resetting envs."""
+    import copy
+
+    from sigmarl_tpu_torch import trace
+    from sigmarl_tpu_torch.env.reset import ResetDraws
+    from sigmarl_tpu_torch.utils.card_checks import env_graph_counts
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the spawn kernel has no CPU build")
+    kw = ENV_GRAPH_CASES[case]
+    p = Parameters(**{"dt": 0.1, "max_steps": 1_000_000, "is_use_mtv_distance": False, **kw})
+    env = make_env(p, device="cuda")
+    eager = copy.copy(env)
+    eager.challenge_counts = torch.zeros_like(env.challenge_counts)
+    g_act = torch.Generator(device="cuda").manual_seed(1)
+    g_graph, g_eager = (torch.Generator(device="cuda").manual_seed(2) for _ in range(2))
+    B, N = env.batch_dim, env.n_agents
+    if case == "entire_b1024":
+        state = zero_state(env.cfg, "cuda")
+    else:
+        state, _ = env.reset(generator=torch.Generator(device="cuda").manual_seed(3))
+    trace.reset()
+    outs, branches = [], {"none": 0, "compacted": 0, "full": 0}
+    for i in range(ENV_GRAPH_STEPS):
+        act = (torch.rand((B, N, 2), generator=g_act, device="cuda") - 0.3) * env.action_limits
+        kw = {}
+        if case == "mixed_noise" and i % 2 == 0:
+            kw = dict(reset_draws=ResetDraws.sample(env.cfg, g_act, "cuda"),
+                      obs_noise=torch.rand((B, N, env.obs_dim), generator=g_act, device="cuda"))
+        if case in ("testing", "challenge") and i % 2 == 0:
+            kw = dict(obs_noise=torch.rand((B, N, env.obs_dim), generator=g_act, device="cuda"))
+        before = (env.compact_reset_steps, env.full_reset_steps)
+        got = env.step(state, act, generator=g_graph, **kw)
+        want = eager._step_eager(state, act, g_eager, kw.get("reset_draws"), kw.get("obs_noise"))
+        compacted, full = env.compact_reset_steps - before[0], env.full_reset_steps - before[1]
+        branches["compacted" if compacted else "full" if full else "none"] += 1
+        outs.append((_env_outputs(got), _env_outputs(want)))
+        state = got[0]
+    torch.cuda.synchronize()
+    assert env_graph_counts() == {"captures": 1, "replays": 6 * ENV_GRAPH_STEPS}
+    assert len(env._graphs) == 1
+    for i, (got, want) in enumerate(outs):
+        assert got.keys() == want.keys()
+        for name, a in got.items():
+            b = want[name]
+            assert a.dtype == b.dtype and a.shape == b.shape, (i, name)
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"step {i}: {name}")
+    memory = [{t.untyped_storage().data_ptr() for t in got.values()} for got, _ in outs]
+    assert all(not (memory[a] & memory[b]) for a in range(len(memory)) for b in range(a))
+    assert torch.equal(env.challenge_counts, eager.challenge_counts)
+    if case == "challenge":
+        assert int(env.challenge_counts[0]) > 0  # records were written
+    if case == "entire_b1024":
+        assert branches["compacted"] > 0 and branches["full"] > 0, branches
+    if case == "entire_b1":
+        assert branches["none"] > 0, branches
+
+    read = env._read_resets
+
+    def read_allowed(n_reset):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return read(n_reset)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    env._read_resets = read_allowed
+    act = (torch.rand((B, N, 2), generator=g_act, device="cuda") - 0.3) * env.action_limits
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = env.step(state, act, generator=g_graph)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        del env._read_resets
+    want = eager._step_eager(state, act, g_eager, None, None)
+    for name, a in _env_outputs(got).items():
+        torch.testing.assert_close(a, _env_outputs(want)[name], rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
+    trace.reset()
