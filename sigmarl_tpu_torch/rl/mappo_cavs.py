@@ -414,20 +414,26 @@ class MAPPOCAVs:
     def act(self, state: TrainState, env_state: WorldState, obs: Tensor, draws=None, t: int = 0):
         """The policy's actions in the rollout's mode. Returns (action,
         log_prob, the observation each agent acted on, priority scores and
-        their log-probabilities (None without learned priority))."""
+        their log-probabilities (None without learned priority)). Under
+        XP-MARL the rank and the turns are the spans `.priority` and
+        `.turns` (`train.rollout.act.priority`, `train.rollout.act.turns`
+        in an iteration)."""
         low, high, gen = self.low, self.high, self.env_generator
         noise = _draw(draws, "action_noise", t)
         if self.use_prio:
-            prio = priority_rank(
-                self.prio_method, state.prio_policy, obs, gen,
-                noise=_draw(draws, "priority_noise", t), perms=_draw(draws, "priority_perms", t),
-            )
-            ap = prioritized_action_propagation(
-                state.policy, self._pad(obs), prio.rank,
-                nearing_agent_indices(env_state.d_agents, self.k_nearing), low, high, gen,
-                action_noise=noise, communication_noise_level=self.communication_noise_level,
-                communication_noise=_draw(draws, "communication_noise", t),
-            )
+            with trace.span(".priority"):
+                prio = priority_rank(
+                    self.prio_method, state.prio_policy, obs, gen,
+                    noise=_draw(draws, "priority_noise", t),
+                    perms=_draw(draws, "priority_perms", t),
+                )
+            with trace.span(".turns"):
+                ap = prioritized_action_propagation(
+                    state.policy, self._pad(obs), prio.rank,
+                    nearing_agent_indices(env_state.d_agents, self.k_nearing), low, high, gen,
+                    action_noise=noise, communication_noise_level=self.communication_noise_level,
+                    communication_noise=_draw(draws, "communication_noise", t),
+                )
             if state.prio_policy is None:
                 return ap.actions, ap.log_prob, ap.obs_used, None, None
             return ap.actions, ap.log_prob, ap.obs_used, prio.scores, prio.log_prob

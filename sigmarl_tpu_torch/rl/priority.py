@@ -10,7 +10,8 @@ only.
 
 Every random number can be given as tensors (the priority sample's normals
 or the permutations, the per-turn action and communication noise), else it
-comes from a `torch.Generator`.
+comes from a `torch.Generator`. Each turn adds one to the count `turns`
+(`trace.count`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.constants import AGENTS
 # Each agent's k nearest agents [B, N, k], nearest first, the lower index
 # first among equal distances.
@@ -96,6 +98,7 @@ def prioritized_action_propagation(
     std = torch.tensor([AGENTS["max_speed"], AGENTS["max_steering"]] * k, device=dev)
     std = std * communication_noise_level
     for t in range(N):
+        trace.count("turns")
         acting = rank[:, t].long()  # [B]
         obs_a = base_obs[env_idx, acting]  # [B, obs_pad] (a copy)
         if k > 0:
