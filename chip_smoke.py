@@ -64,10 +64,12 @@ result line:
    K2 once per step; K1 against its plain version at 2+15 on the
    centralized input, whose weights phase 10 tests); XP-MARL with learned
    and random priority and opponent modeling (every network moved, ranks
-   permutations, N policy calls per step, 2 with opponent modeling, no
-   kernel); wide XP-MARL with a CBF-filtered rollout at N=15, B=1024 (15
-   policy calls per step); each iteration's split into rollout, GAE and
-   update;
+   permutations, N turns per step, every step after the first one replay
+   of the acting's graphs, 2 policy calls per step with opponent
+   modeling, no kernel); wide XP-MARL with a CBF-filtered rollout at
+   N=15, B=1024 (15 turns per step; a second, timed iteration whose every
+   step is one replay of each acting graph, no capture); each
+   iteration's split into rollout, GAE and update;
 10. testing (`main_testing`'s function) on phase 9's centralized model,
    deterministic, B=32, 128 steps: finite records, single-agent resets,
    the JAX function's metric keys, no kernel launched; then the challenge
@@ -735,8 +737,9 @@ def filtered_training_phase(dev, smi, workdir) -> dict:
 
 def rollout_policy_calls(net):
     """Counts the calls of `net` made without autograd, which are the
-    rollout's (the update's loss runs with it). Returns (counter, hook
-    handle)."""
+    rollout's (the update's loss runs with it); a CUDA graph's replay
+    calls no module, so this counts eager acting only. Returns (counter,
+    hook handle)."""
     import torch
 
     calls = [0]
@@ -746,6 +749,33 @@ def rollout_policy_calls(net):
             calls[0] += 1
 
     return calls, net.register_forward_hook(hook)
+
+
+# XP-MARL's acting counts: its priority turns (a replay adds the N of its
+# graph's capture) and the rank's and the turns' graphs (`rl/act_graphs.py`).
+ACTING_COUNTS = ("turns", "turns.graph.captures", "turns.graph.replays", "rank.graph.captures",
+                 "rank.graph.replays")
+
+
+def acting_counts(before: dict) -> dict:
+    """The acting counts since `before` (a `trace.snapshot()`'s counts)."""
+    from sigmarl_tpu_torch import trace
+
+    now = trace.snapshot()["counts"]
+    return {k: now.get(k, 0) - before.get(k, 0) for k in ACTING_COUNTS}
+
+
+def check_acting(tr, acting: dict, what: str, first: bool) -> None:
+    """An XP-MARL rollout: N turns a step, and every step one replay of the
+    turns' graph and, with learned priority, of the rank's, with no
+    capture; a fresh trainer's first step captures them instead."""
+    T, N, cap = tr.parameters.max_steps, tr.parameters.n_agents, int(first)
+    learned = tr.prio_policy_net is not None
+    check(acting["turns"] == N * T, f"{acting['turns']} turns in {T} {what} steps, want {N} a step")
+    want = {"turns.graph.captures": cap, "turns.graph.replays": T - cap,
+            "rank.graph.captures": cap * learned, "rank.graph.replays": (T - cap) * learned}
+    got = {k: acting[k] for k in want}
+    check(got == want, f"{what}: acting graphs {got} in {T} steps, want {want}")
 
 
 def recording_ranks():
@@ -774,15 +804,16 @@ def recording_ranks():
 
 def one_iteration(p, smi, what: str):
     """One `train_iteration` of a fresh trainer; returns (trainer, state,
-    metrics, its launches, the rollout's policy calls, the per-call rank
-    flags)."""
+    metrics, its launches, the rollout's eager policy calls, its acting
+    counts, the per-call rank flags)."""
     import torch
 
-    from sigmarl_tpu_torch import MAPPOCAVs
+    from sigmarl_tpu_torch import MAPPOCAVs, trace
 
     tr = MAPPOCAVs(p)
     state = tr.initial_state()
     before = [t.detach().clone() for t in tr.parameter_list()]
+    counts = trace.snapshot()["counts"]
     calls, handle = rollout_policy_calls(tr.policy_net)
     flags, unwrap = recording_ranks()
     try:
@@ -800,7 +831,7 @@ def one_iteration(p, smi, what: str):
         check(math.isfinite(float(m["loss_priority"])), f"non-finite priority loss ({what})")
     ranks_ok = bool(torch.stack(flags).all()) if flags else True
     check(ranks_ok, f"a priority rank is not a permutation ({what})")
-    return tr, state, m, launches, calls[0], len(flags)
+    return tr, state, m, launches, calls[0], acting_counts(counts), len(flags)
 
 
 def xpmarl_training_phase(dev, smi, workdir) -> None:
@@ -819,13 +850,15 @@ def xpmarl_training_phase(dev, smi, workdir) -> None:
     ):
         p = Parameters(**kw, n_iters=1, device=dev,
                        where_to_save=os.path.join(workdir, "xpmarl") + "/")
-        tr, _, m, launches, calls, n_ranks = one_iteration(p, smi, f"XP-MARL, {name},")
-        per_step = p.n_agents if tr.use_prio else 2
-        print(f"XP-MARL, {name}: launches {launches}, {calls} rollout policy calls in "
-              f"{p.max_steps} steps, {n_ranks} ranks checked"
+        tr, _, m, launches, calls, acting, n_ranks = one_iteration(p, smi, f"XP-MARL, {name},")
+        print(f"XP-MARL, {name}: launches {launches}, {calls} eager rollout policy calls and "
+              f"acting {acting} in {p.max_steps} steps, {n_ranks} ranks checked"
               + (f", priority loss {float(m['loss_priority']):.5f}" if tr.prio_policy_net else ""))
-        check(calls == per_step * p.max_steps,
-              f"{calls} policy calls in {p.max_steps} {name} steps, want {per_step} per step")
+        if tr.use_prio:
+            check_acting(tr, acting, name, first=True)
+        else:
+            check(calls == 2 * p.max_steps,
+                  f"{calls} policy calls in {p.max_steps} {name} steps, want 2 per step")
         check(n_ranks == (p.max_steps if tr.use_prio else 0), f"{n_ranks} ranks in {name}")
         check_launches(launches, {"qp_newton": 0, "boundary_stencil": 0}, f"the {name} iteration")
 
@@ -835,25 +868,39 @@ def wide_xpmarl_phase(dev, smi, workdir) -> None:
     path's width on the `Parameters` defaults (`WIDE_XPMARL_TRAINING`: MTV
     distance and observation noise on, cpm_entire, N=15, B=1024, T=16,
     communication noise, the centralized filter at its 2+15 budget, one
-    epoch of minibatch 4096). One iteration: K1 and K2 launched once per
-    rollout step, 15 policy calls per step, finite obs, rewards and
-    losses."""
-    from sigmarl_tpu_torch import Parameters
+    epoch of minibatch 4096). Two iterations: K1 and K2 launched once per
+    rollout step, 15 turns per step, finite obs, rewards and losses; the
+    first captures the acting's graphs at its first step, and every step
+    of the second, timed, replays each once."""
+    import time
+
+    import torch
+
+    from sigmarl_tpu_torch import Parameters, trace
     from sigmarl_tpu_torch.utils.card_checks import WIDE_XPMARL_TRAINING, reset_counts
 
     p = Parameters(**WIDE_XPMARL_TRAINING, n_iters=1, device=dev,
                    where_to_save=os.path.join(workdir, "wide") + "/")
     check(p.is_use_mtv_distance and p.is_obs_noise, "the wide run is not on the defaults")
-    tr, _, m, launches, calls, _ = one_iteration(p, smi, "wide XP-MARL, CBF-filtered,")
+    tr, state, m, launches, _, acting, _ = one_iteration(p, smi, "wide XP-MARL, CBF-filtered,")
     solved = float(m["cbf_solved_share"])
     print(f"wide XP-MARL, CBF-filtered: launches {launches}, solved share {solved:.6f}, "
-          f"{calls} rollout policy calls in {p.max_steps} steps, priority loss "
+          f"acting {acting} in {p.max_steps} steps, priority loss "
           f"{float(m['loss_priority']):.5f}, reset steps "
           f"{fmt_branches(reset_counts(tr.env), p.max_steps)}")
     check(math.isfinite(solved), "no solved share in the wide XP-MARL iteration")
-    check(calls == p.n_agents * p.max_steps, f"{calls} policy calls, want {p.n_agents} per step")
+    check_acting(tr, acting, "wide XP-MARL", first=True)
     check_launches(launches, {"qp_newton": p.max_steps, "boundary_stencil": p.max_steps},
                    "wide XP-MARL")
+    counts = trace.snapshot()["counts"]
+    t0 = time.perf_counter()
+    (state, m), launches = counted(lambda: tr.train_iteration(state))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    acting = acting_counts(counts)
+    print(f"wide XP-MARL, timed iteration: {elapsed:.3f} s, acting {acting}")
+    check(_finite_losses(m), "non-finite loss in the timed wide XP-MARL iteration")
+    check_acting(tr, acting, "timed wide XP-MARL", first=False)
 
 
 def check_record(record: dict, what: str) -> None:
