@@ -246,13 +246,15 @@ class RoadTrafficEnv:
         return uniform((), generator, self.device) if record_u is None else record_u
 
     def _read_resets(self, n_reset: Tensor) -> list:
-        """The host reads how many envs reset (one device sync per step).
-        Sharded, every rank's count, in rank order."""
+        """The host reads how many envs reset (one device sync per step) and
+        counts this rank's (`env_step.reset.envs`). Sharded, every rank's
+        count, in rank order."""
         if self.shard is None:
             counts = [int(n_reset)]
         else:
             counts = self.shard.all_gather(n_reset).tolist()
         trace.count_sync(n_reset.device)
+        trace.count("env_step.reset.envs", counts[0 if self.shard is None else self.shard.rank])
         return counts
 
     def _reset(self, state, reset_mask, counts: list, reset_draws, generator) -> WorldState:

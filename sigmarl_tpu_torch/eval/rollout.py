@@ -6,6 +6,10 @@ flags, reward breakdown, the filter's diagnostics), with the CBF filter
 between the policy and the env step when one is given. The records stay on
 the device and are copied to the host once per chunk of steps: one
 synchronisation per chunk.
+
+Spans: `eval.rollout` around a rollout, `eval.record` around a chunk's
+stack, copies and synchronisation (counted as a sync); the count
+`eval.record.bytes` adds the bytes a chunk copies.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sigmarl_tpu_torch import trace
 from sigmarl_tpu_torch.env.env import RoadTrafficEnv
 from sigmarl_tpu_torch.env.reset import ResetDraws
 from sigmarl_tpu_torch.rl.networks import (
@@ -55,8 +60,10 @@ class StepDraws:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    trace.count_sync(device)
 
 
+@trace.span("eval.rollout")
 def rollout(
     env: RoadTrafficEnv,
     policy_fn: PolicyFn,
@@ -105,9 +112,12 @@ def rollout(
             steps.append(rec)
         # One copy per key, all queued behind the chunk's steps, and one
         # synchronisation before the host reads them.
-        stacked = {k: torch.stack([r[k] for r in steps]) for k in steps[0]}
-        host = {k: v.to("cpu", non_blocking=dev.type == "cuda") for k, v in stacked.items()}
-        _sync(dev)
+        with trace.span("eval.record"):
+            stacked = {k: torch.stack([r[k] for r in steps]) for k in steps[0]}
+            host = {k: v.to("cpu", non_blocking=dev.type == "cuda") for k, v in stacked.items()}
+            trace.count("eval.record.bytes",
+                        sum(v.numel() * v.element_size() for v in stacked.values()))
+            _sync(dev)
         t_total += time.perf_counter() - t0
         records.append({k: v.numpy() for k, v in host.items()})
     out = {k: np.concatenate([r[k] for r in records], axis=0) for k in records[0]}

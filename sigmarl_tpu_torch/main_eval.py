@@ -61,9 +61,9 @@ def run_tag(args) -> str:
             f"{args.nom_controller_type}_{'nocbf' if args.no_cbf else 'cbf'}_s{args.seed}")
 
 
-def evaluate(args):
-    """The evaluation rollout of parsed `args`. Returns (metrics, record,
-    env, filter or None)."""
+def build(args):
+    """What the evaluation of parsed `args` runs: (env in testing mode,
+    filter or None, nominal policy)."""
     parameters = Parameters(
         scenario_type=args.scenario_type,
         n_agents=args.n_agents,
@@ -106,6 +106,13 @@ def evaluate(args):
         # (0.5, 0) nominal actions; with the CLF nominal controller the
         # filter replaces them with its own.
         policy_fn = constant_speed_policy(env)
+    return env, cbf, policy_fn
+
+
+def evaluate(args):
+    """The evaluation rollout of parsed `args`. Returns (metrics, record,
+    env, filter or None)."""
+    env, cbf, policy_fn = build(args)
     gen = torch.Generator(device=env.device).manual_seed(args.seed)
     record, timings = rollout(env, policy_fn, args.max_steps, gen, cbf=cbf)
     result = M.basic_metrics(record)

@@ -13,6 +13,13 @@ come packed by `safety.qp.pack_constraints`, invalid rows as ws = 0; one
 agent has no pair rows (P = 0, pairs [B, 8, 0]). CUDA
 tensors launch the kernel; CPU tensors run `newton_solve_reference`, which
 follows the kernel's algorithm step for step.
+
+The kernel solves an env again with IEEE divisions where its operands
+leave the fast division's ranges, and counts those envs on the card, in a
+buffer of this module (one per card, so a CUDA graph's replays count
+too); `collect_ieee_resolves` reads it into the trace's count
+`k1.ieee_resolves`, outside any timed stretch (the read waits for the
+card).
 """
 
 from __future__ import annotations
@@ -356,6 +363,37 @@ def _check(t: Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# Per card index: the int64 [1] count of envs that K1 solved with IEEE
+# divisions. Allocated at the first launch outside a graph's capture and
+# never freed or rebound: captured launches hold its address.
+_IEEE_RESOLVES: dict = {}
+
+
+def _ieee_buffer(device: torch.device):
+    buf = _IEEE_RESOLVES.get(device.index)
+    if buf is None and not torch.cuda.is_current_stream_capturing():
+        buf = _IEEE_RESOLVES[device.index] = torch.zeros(1, dtype=torch.int64, device=device)
+    return buf
+
+
+def collect_ieee_resolves(device: torch.device | str | None = None) -> int:
+    """The envs K1 solved with IEEE divisions on `device` (the current
+    card by default) since the last collection: read from the card (one
+    sync), added to the trace's count `k1.ieee_resolves` and zeroed."""
+    if not _IEEE_RESOLVES:
+        return 0
+    device = torch.device("cuda" if device is None else device)
+    buf = _IEEE_RESOLVES.get(
+        torch.cuda.current_device() if device.index is None else device.index)
+    if buf is None:
+        return 0
+    n = int(buf)
+    trace.count_sync(buf.device)
+    buf.zero_()
+    trace.count("k1.ieee_resolves", n)
+    return n
+
+
 def newton_solve(
     singles: Tensor,
     pairs: Tensor,
@@ -410,15 +448,16 @@ def newton_solve(
         + [ctypes.c_int] * 7
         + [ctypes.c_float] * 7
         + [ctypes.c_double] * 2
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     )
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = ctypes.c_void_p(torch.cuda.current_stream(u0.device).cuda_stream)
+    counter = _ieee_buffer(u0.device)
     err = fn(
         p(singles), p(pairs), p(u0), p(u_init), p(u_nom), p(pair_i), p(pair_j), p(u), p(F),
         B, N, Ks, Kp, P, n_iters, soft_iters,
         w_u[0], w_u[1], u_lo[0], u_lo[1], u_hi[0], u_hi[1], ridge,
-        soft_cap, ws_cap, stream,
+        soft_cap, ws_cap, stream, None if counter is None else p(counter),
     )
     if err != 0:
         raise RuntimeError(f"QP solve kernel launch failed: CUDA error {err}")

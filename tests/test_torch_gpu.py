@@ -245,6 +245,37 @@ def test_solve_kernel_matches_plain_on_tiny_residuals():
     _solve_matches_plain((singles, pairs, *rest))
 
 
+def test_the_ieee_resolve_count_changes_no_output_bit(monkeypatch):
+    """K1 counts on the card the envs it solves again with IEEE divisions
+    (`ops/qp.py::collect_ieee_resolves`), and the count changes none of its
+    outputs: an input inside the fast division's ranges counts 0 a launch;
+    the same input with one env's divisor planted out of range (a valid
+    row's h of 1e13, past 2^40) counts exactly 1 a launch, at every budget;
+    a launch given no counter buffer gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the port's kernels have no CPU build")
+    from sigmarl_tpu_torch.ops import qp
+    from sigmarl_tpu_torch.ops.qp import collect_ieee_resolves
+
+    singles, pairs, *rest = _synthetic_qp(64, 15, 8, 9, seed=11)
+    planted = singles.clone()
+    row = int(torch.nonzero(planted[5, 4] > 0)[0])
+    planted[5, 3, row] = 1e13
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    collect_ieee_resolves()
+    for rows, want in ((singles, 0), (planted, 1)):
+        args = (rows, pairs, *rest)
+        for it, soft in ((0, 0), (15, 2), (5, 3)):
+            u_c, F_c = newton_solve(*args, it, soft_iters=soft)
+            assert collect_ieee_resolves() == want, (want, it, soft)
+            with monkeypatch.context() as m:
+                m.setattr(qp, "_ieee_buffer", lambda device: None)
+                u_n, F_n = newton_solve(*args, it, soft_iters=soft)
+            assert collect_ieee_resolves() == 0
+            assert torch.equal(bits(u_c), bits(u_n)) and torch.equal(bits(F_c), bits(F_n))
+            assert torch.isfinite(u_c).all() and torch.isfinite(F_c).all()
+
+
 _DIV_PROBE = r"""
 #include "{csrc}/qp_newton.cu"
 namespace {{
